@@ -1,0 +1,43 @@
+"""Carry a model trained by the JAX package over to the port.
+
+``from_jax_arrays`` takes the arrays of a reference ``DCSVMModel`` as numpy
+(``np.asarray`` of each field) and builds the port's model, so a model
+trained on a TPU predicts the same here:
+
+    arrays = {"X": ..., "y": ..., "alpha": ..., "beta": ...,
+              "assign": ..., "idx": ..., "mask": ...,   # the partition
+              "Xm": ..., "W": ..., "s": ...}            # its routing model
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.dcsvm import DCSVMConfig, DCSVMModel
+from repro_torch.core.kkmeans import KKMeansModel, Partition
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def from_jax_arrays(d: Dict[str, np.ndarray], cfg: DCSVMConfig,
+                    device: DeviceLike = None, is_early: bool = False,
+                    level_stats: Optional[list] = None) -> DCSVMModel:
+    """Build a port ``DCSVMModel`` from a reference model's arrays.  The
+    partition keys are optional (an exact-only model has none)."""
+    dev = resolve_device(device)
+
+    def t(name):
+        return torch.as_tensor(np.array(d[name], np.float32), device=dev)
+
+    partition = None
+    if "idx" in d:
+        idx = np.asarray(d["idx"], np.int64)
+        partition = Partition(
+            assign=np.asarray(d["assign"], np.int32), idx=idx,
+            mask=np.asarray(d["mask"], bool), k=idx.shape[0], nc=idx.shape[1],
+            model=KKMeansModel(Xm=t("Xm"), W=t("W"), s=t("s")))
+    return DCSVMModel(config=cfg, X=t("X"), y=t("y"), alpha=t("alpha"),
+                      partition=partition, is_early=is_early,
+                      level_stats=list(level_stats or []),
+                      beta=t("beta") if "beta" in d else None)

@@ -1,0 +1,113 @@
+"""Kernel functions for DC-SVM (port of ``repro.core.kernels``).
+
+A ``Kernel`` carries the hyper-parameters plus a plain-torch pairwise
+evaluation.  Heavy Gram work goes through ``gram`` / ``gram_matvec``, which
+take the hand-written CUDA kernels (``repro_torch.kernels.ops``) when
+``use_kernels`` is set and the plain torch expressions otherwise.
+
+RBF  K(x, z) = exp(-gamma |x - z|^2)   (the paper's main kernel)
+poly K(x, z) = (gamma x'z + coef0)^degree
+linear K(x, z) = x'z
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+# Gram memory budget in BYTES (2**29 = 512 MiB), the reference's default:
+# it sizes the per-level cluster batches and the plain matvec's row chunks.
+DEFAULT_GRAM_BUDGET = 2 ** 29
+
+
+def auto_num_chunks(n_rows: int, n_cols: int, itemsize: int = 4,
+                    budget_bytes: Optional[int] = None) -> int:
+    """Smallest chunk count whose (n_rows/chunks, n_cols) row block fits the
+    byte budget.  Chunking only partitions output rows."""
+    budget = DEFAULT_GRAM_BUDGET if budget_bytes is None else int(budget_bytes)
+    total = int(n_rows) * int(n_cols) * int(itemsize)
+    return max(1, min(int(n_rows), -(-total // max(budget, 1))))
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """Kernel hyper-parameters. ``kind`` in {"rbf", "poly", "linear"}."""
+
+    kind: str = "rbf"
+    gamma: float = 1.0
+    degree: int = 3
+    coef0: float = 0.0
+
+    def __post_init__(self):
+        if self.kind not in ("rbf", "poly", "linear"):
+            raise ValueError(f"unknown kernel kind: {self.kind}")
+
+    def pairwise(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+        """K(X, Y): (..., n, d) x (..., m, d) -> (..., n, m) in plain torch,
+        in the inputs' dtype."""
+        if self.kind == "linear":
+            return X @ Y.mT
+        if self.kind == "poly":
+            return (self.gamma * (X @ Y.mT) + self.coef0) ** self.degree
+        return torch.exp(-self.gamma * sqdist(X, Y))
+
+    def diag(self, X: torch.Tensor) -> torch.Tensor:
+        """K(x_i, x_i) for all rows, without forming the Gram matrix."""
+        if self.kind == "linear":
+            return torch.sum(X * X, dim=-1)
+        if self.kind == "poly":
+            return (self.gamma * torch.sum(X * X, dim=-1)
+                    + self.coef0) ** self.degree
+        return torch.ones(X.shape[:-1], dtype=X.dtype, device=X.device)
+
+    @property
+    def k_max(self) -> float:
+        """Upper bound on K(x, x) used by the Theorem-2 margin (RBF: 1)."""
+        return 1.0 if self.kind == "rbf" else float("inf")
+
+
+def sqdist(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Squared euclidean distances via the Gram expansion."""
+    xx = torch.sum(X * X, dim=-1)[..., :, None]
+    yy = torch.sum(Y * Y, dim=-1)[..., None, :]
+    sq = xx + yy - 2.0 * (X @ Y.mT)
+    return torch.clamp(sq, min=0.0)
+
+
+def resolve_use_kernels(flag: Optional[bool], device: torch.device) -> bool:
+    """``None``: the CUDA kernels on a CUDA device, the plain versions on the
+    CPU.  ``True`` on the CPU routes through the wrappers, which then run
+    the plain versions (the counterpart of the reference's interpret mode)."""
+    if flag is None:
+        return torch.device(device).type == "cuda"
+    return bool(flag)
+
+
+def gram(kernel: Kernel, X: torch.Tensor, Y: torch.Tensor,
+         use_kernels: bool = False) -> torch.Tensor:
+    """Kernel matrix K(X, Y), (n, m); batched (b, n, m) for 3-D inputs."""
+    if use_kernels:
+        from repro_torch.kernels import ops
+
+        return ops.kernel_matrix(X.contiguous(), Y.contiguous(), kernel)
+    return kernel.pairwise(X, Y)
+
+
+def gram_matvec(kernel: Kernel, X: torch.Tensor, v: torch.Tensor,
+                num_chunks: Optional[int] = None, use_kernels: bool = False,
+                budget_bytes: Optional[int] = None) -> torch.Tensor:
+    """K(X, X) @ v without materialising the Gram matrix: one streaming
+    ``kernel_matvec`` launch, or row chunks of plain torch sized to the byte
+    budget (any chunk count gives the same rows)."""
+    if use_kernels:
+        from repro_torch.kernels import ops
+
+        return ops.kernel_matvec(X.contiguous(), X.contiguous(),
+                                 v.contiguous(), kernel)
+    n = X.shape[0]
+    if num_chunks is None:
+        num_chunks = auto_num_chunks(n, n, budget_bytes=budget_bytes)
+    rows = -(-n // num_chunks)
+    return torch.cat([kernel.pairwise(X[i:i + rows], X) @ v
+                      for i in range(0, n, rows)])

@@ -1,0 +1,115 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process into a
+shared library with a plain C interface, and loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so <name>.cu
+
+The build goes into ``build/repro_torch_kernels/`` at the repository root
+on first use; the file name carries a hash of the sources, so an edit
+rebuilds and an unchanged tree reuses the library.  All sources compile in
+parallel.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("kermat", "kermatvec", "cd_update")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+# C signatures of the entry points (every one returns cudaGetLastError()).
+SIGNATURES = {
+    "kermat": ("rt_kermat",
+               [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _F, _I, _F, _P]),
+    "kermatvec": ("rt_kernel_matvec",
+                  [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _F, _I,
+                   _F, _P]),
+    "cd_update": ("rt_cd_column_update",
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _P]),
+}
+
+_lock = threading.Lock()
+_loaded: Dict[str, object] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for p in sorted([CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def build_all(verbose: bool = False) -> Dict[str, Path]:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together.  Raises with the compiler's output if one fails."""
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs: List = []
+    out: Dict[str, Path] = {}
+    for name in SOURCES:
+        lib = library_path(name)
+        out[name] = lib
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+        cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for name, lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        if verbose and log:
+            print(log, flush=True)
+        os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
+def kernel_fn(name: str):
+    """The ctypes entry point of ``csrc/<name>.cu``, building it if needed."""
+    with _lock:
+        fn = _loaded.get(name)
+        if fn is None:
+            lib = build_all()[name]
+            symbol, argtypes = SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(lib)), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
+        return fn

@@ -1,0 +1,168 @@
+"""Wrappers around the hand-written CUDA kernels.
+
+Each wrapper checks device, dtype, shape and contiguity.  For a tensor on
+the CPU it runs the kernel's plain version (``kernels.ref``); for a CUDA
+tensor it launches the kernel or raises -- there is no fallback.  Outputs
+are allocated with ``torch.empty`` and the kernels run on the current
+stream.  ``LAUNCHES`` counts, per kernel, the launches made by the
+wrappers (a plain integer, added to where the kernel is launched and
+nowhere else), so a run can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES: Dict[str, int] = {"kermat": 0, "kernel_matvec": 0,
+                            "cd_column_update": 0}
+
+_KIND = {"linear": 0, "poly": 1, "rbf": 2}
+_MAX_GRID_YZ = 65535
+MAX_CD_BLOCK = 256
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _no_policy(compute_dtype) -> None:
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            "compute_dtype (the bf16 operand policy) is not ported yet")
+
+
+def _params(kernel):
+    return (_KIND[kernel.kind], float(kernel.gamma), int(kernel.degree),
+            float(kernel.coef0))
+
+
+def _ref_kw(kernel):
+    return dict(kind=kernel.kind, gamma=float(kernel.gamma),
+                degree=int(kernel.degree), coef0=float(kernel.coef0))
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+    dev = next(iter(devs))
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cpu"
+
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous tensors")
+
+
+def _run(name: str, *args) -> None:
+    err = build.kernel_fn(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def kernel_matrix(X: torch.Tensor, Y: torch.Tensor, kernel,
+                  compute_dtype=None) -> torch.Tensor:
+    """K(X, Y): (n, d) x (m, d) -> (n, m), or batched (b, n, d) x (b, m, d)
+    -> (b, n, m) in one launch."""
+    _no_policy(compute_dtype)
+    if X.dim() not in (2, 3) or Y.dim() != X.dim():
+        raise ValueError(f"kernel_matrix takes two 2-D or two 3-D tensors, "
+                         f"got {tuple(X.shape)} and {tuple(Y.shape)}")
+    if X.shape[-1] != Y.shape[-1] or X.shape[:-2] != Y.shape[:-2]:
+        raise ValueError(f"shape mismatch {tuple(X.shape)} vs {tuple(Y.shape)}")
+    if _on_cpu(X, Y):
+        return ref.kermat_ref(X, Y, **_ref_kw(kernel))
+    _check_cuda(X, Y)
+    Xb, Yb = (X, Y) if X.dim() == 3 else (X[None], Y[None])
+    b, n, d = Xb.shape
+    m = Yb.shape[1]
+    if b > _MAX_GRID_YZ or -(-m // 64) > _MAX_GRID_YZ:
+        raise ValueError(f"kermat grid too large for batch {b}, m {m}")
+    out = torch.empty((b, n, m), device=X.device, dtype=torch.float32)
+    if b and n and m:
+        _run("kermat", Xb.data_ptr(), Yb.data_ptr(), out.data_ptr(), b, n, m,
+             d, n * d, m * d, *_params(kernel), _stream(X))
+        LAUNCHES["kermat"] += 1
+    return out if X.dim() == 3 else out[0]
+
+
+def kernel_matvec(X: torch.Tensor, Z: torch.Tensor, v: torch.Tensor, kernel,
+                  compute_dtype=None) -> torch.Tensor:
+    """out = K(X, Z) @ v without materialising K: (n, d), (m, d), (m,) ->
+    (n,), or batched (b, n, d), (b, m, d), (b, m) -> (b, n)."""
+    _no_policy(compute_dtype)
+    if X.dim() not in (2, 3) or Z.dim() != X.dim() or v.dim() != X.dim() - 1:
+        raise ValueError(f"kernel_matvec shapes {tuple(X.shape)}, "
+                         f"{tuple(Z.shape)}, {tuple(v.shape)}")
+    if (X.shape[-1] != Z.shape[-1] or X.shape[:-2] != Z.shape[:-2]
+            or v.shape != Z.shape[:-1]):
+        raise ValueError(f"kernel_matvec shapes {tuple(X.shape)}, "
+                         f"{tuple(Z.shape)}, {tuple(v.shape)}")
+    if _on_cpu(X, Z, v):
+        return ref.kernel_matvec_ref(X, Z, v, **_ref_kw(kernel))
+    _check_cuda(X, Z, v)
+    Xb, Zb, vb = (X, Z, v) if X.dim() == 3 else (X[None], Z[None], v[None])
+    b, n, d = Xb.shape
+    m = Zb.shape[1]
+    if b > _MAX_GRID_YZ:
+        raise ValueError(f"kernel_matvec batch {b} too large")
+    out = torch.empty((b, n), device=X.device, dtype=torch.float32)
+    if b and n:
+        _run("kermatvec", Xb.data_ptr(), Zb.data_ptr(), vb.data_ptr(),
+             out.data_ptr(), b, n, m, d, n * d, m * d, m, *_params(kernel),
+             _stream(X))
+        LAUNCHES["kernel_matvec"] += 1
+    return out if X.dim() == 3 else out[0]
+
+
+def q_rows(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
+           yb: torch.Tensor, kernel, compute_dtype=None) -> torch.Tensor:
+    """Signed dual rows ``Q[b, :] = y_b * (K(X_b, X) * y)``, shape (B, n)."""
+    Kb = kernel_matrix(Xb, X, kernel, compute_dtype=compute_dtype)
+    return yb[:, None] * (Kb * y[None, :])
+
+
+def cd_column_update(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
+                     w: torch.Tensor, kernel, compute_dtype=None
+                     ) -> torch.Tensor:
+    """dg = y * (K(X, Xb) @ w): X (n, d), y (n,), Xb (B, d), w (B,) -> (n,),
+    B <= 256.  The (n, B) kernel block never reaches device memory."""
+    _no_policy(compute_dtype)
+    if (X.dim() != 2 or Xb.dim() != 2 or y.shape != X.shape[:1]
+            or w.shape != Xb.shape[:1] or X.shape[1] != Xb.shape[1]):
+        raise ValueError(f"cd_column_update shapes {tuple(X.shape)}, "
+                         f"{tuple(y.shape)}, {tuple(Xb.shape)}, "
+                         f"{tuple(w.shape)}")
+    if _on_cpu(X, y, Xb, w):
+        return ref.cd_column_update_ref(X, y, Xb, w, **_ref_kw(kernel))
+    _check_cuda(X, y, Xb, w)
+    n, d = X.shape
+    B = Xb.shape[0]
+    if B > MAX_CD_BLOCK:
+        raise ValueError(f"cd_column_update takes B <= {MAX_CD_BLOCK}, got {B}")
+    dpad = -(-d // 16) * 16
+    bp = 64 if B <= 64 else (128 if B <= 128 else 256)   # padded block width
+    if (dpad + 2) * bp * 4 > 200 * 1024:
+        raise ValueError(f"cd_column_update: Xb ({B}, {d}) does not fit in "
+                         "shared memory")
+    out = torch.empty(n, device=X.device, dtype=torch.float32)
+    if n:
+        _run("cd_update", X.data_ptr(), y.data_ptr(), Xb.data_ptr(),
+             w.data_ptr(), out.data_ptr(), n, B, d, *_params(kernel),
+             _stream(X))
+        LAUNCHES["cd_column_update"] += 1
+    return out

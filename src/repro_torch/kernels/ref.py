@@ -1,0 +1,32 @@
+"""Plain PyTorch versions of the hand-written kernels (their oracles).
+
+They repeat the arithmetic of ``csrc/*.cu`` with PyTorch operators and are
+what the ``ops`` wrappers run for a tensor on the CPU.  The RBF form is the
+Gram expansion ``exp(-gamma * max(|x|^2 + |y|^2 - 2 x.y, 0))``.  Leading
+batch dimensions broadcast like ``torch.matmul``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def kermat_ref(X, Y, *, kind="rbf", gamma=1.0, degree=3, coef0=0.0):
+    g = X.float() @ Y.float().mT
+    if kind == "linear":
+        return g
+    if kind == "poly":
+        return (gamma * g + coef0) ** degree
+    xx = torch.sum(X.float() ** 2, -1)[..., :, None]
+    yy = torch.sum(Y.float() ** 2, -1)[..., None, :]
+    return torch.exp(-gamma * torch.clamp(xx + yy - 2 * g, min=0.0))
+
+
+def cd_column_update_ref(X, y, Xb, w, *, kind="rbf", gamma=1.0, degree=3,
+                         coef0=0.0):
+    k = kermat_ref(X, Xb, kind=kind, gamma=gamma, degree=degree, coef0=coef0)
+    return y * (k @ w)
+
+
+def kernel_matvec_ref(X, Z, v, *, kind="rbf", gamma=1.0, degree=3, coef0=0.0):
+    k = kermat_ref(X, Z, kind=kind, gamma=gamma, degree=degree, coef0=coef0)
+    return (k @ v.float()[..., None])[..., 0]

@@ -33,3 +33,5 @@ def pytest_configure(config):
         "markers",
         "properties: hypothesis-backed (or fixed-seed fallback) solver "
         "conformance suite — skipped by scripts/ci.sh --fast")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where there is none")

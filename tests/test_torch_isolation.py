@@ -1,0 +1,86 @@
+"""The port stands alone: no JAX, no reference package, no CPU fallback."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import sys
+import numpy as np
+from repro_torch.core import DCSVMConfig, Kernel, fit, predict_exact, accuracy
+from repro_torch.data import gaussian_mixture
+X, y = gaussian_mixture(np.random.default_rng(0), 200, d=4, modes_per_class=2)
+cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=4.0), C=2.0, levels=1, m=50)
+model = fit(cfg, X, y, device="cpu")
+assert accuracy(y, predict_exact(model, X)) > 0.8
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_port_runs_without_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_no_module_imports_jax_or_the_reference():
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    files.append(SRC.parent / "chip_smoke.py")
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                    f"{path}: imports {name}"
+
+
+def test_cuda_device_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from repro_torch.core import DCSVMConfig, fit
+    from repro_torch.device import resolve_device
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        fit(DCSVMConfig(), torch.zeros(8, 2), torch.ones(8))   # default: cuda
+
+
+def test_wrapper_on_a_cuda_request_raises_without_a_built_kernel(
+        monkeypatch, tmp_path):
+    """A request the wrappers treat as CUDA goes to the kernel or raises:
+    with no library built (no nvcc here) it raises and counts no launch."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the kernels build there")
+    from repro_torch.core.kernels import Kernel
+    from repro_torch.kernels import build, ops
+    monkeypatch.setattr(ops, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda-toolkit"))
+    before = dict(ops.LAUNCHES)
+    X = torch.rand(16, 3)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.kernel_matrix(X, X, Kernel("rbf"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.kernel_matvec(X, X, torch.ones(16), Kernel("rbf"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.cd_column_update(X, torch.ones(16), X[:4], torch.ones(4),
+                             Kernel("rbf"))
+    assert ops.LAUNCHES == before
