@@ -14,13 +14,15 @@ csrc/ with nvcc (into build/repro_torch_kernels/) and runs five phases:
    the card (covtype_like, n = 8192, levels = 2, full_gram_threshold =
    4096, so level 0 takes the Gram-free block CD): same objective to 1e-4
    relative, same test accuracy;
-4. the main path: binary C-SVC on covtype_like with the covtype test
-   split (116,202 queries, d = 54) and half its training split (232,405 of
-   464,810; ``--n-train 464810`` runs all of it), k = 4, levels = 4,
-   m = 1000, C = 8, gamma = 1, then exact and early (eq. 11) prediction,
-   with the launch count of every kernel over that run;
-5. the solver loops' cost per step at the main path's shapes, with the
-   device's busy share from torch.profiler.
+4. the main path: binary C-SVC on covtype_like at the paper's covtype
+   split (464,810 training points, 116,202 queries, d = 54), k = 4,
+   levels = 4, m = 1000, C = 8, gamma = 1, then exact and early (eq. 11)
+   prediction, with the launch count of every kernel over that run; the
+   early path through the kernels is held against its plain versions in
+   float32 and float64 on the same queries;
+5. the solver loops' cost per step at the main path's shapes: wall time
+   without the profiler, device time from torch.profiler, and their ratio,
+   the device's busy share.
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last line is {"ok": true, "device": {...}}.
@@ -38,14 +40,11 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 DEV = "cuda"
 N_TRAIN, N_TEST = 464_810, 116_202      # the paper's covtype split
-# main-path n actually run: half the split.  At the full 464,810 the fit
-# alone took 1,197 s on an H100, past the smoke's 1,200 s limit; its level-0
-# block CD runs max_iters = 30,000 launch-bound iterations (PERF.md).
-MAIN_N_TRAIN = N_TRAIN // 2
 GRAM_BUDGET = 16 * 2 ** 30              # bytes for a level's cluster Grams
 FIT_N, FIT_N_TEST = 8192, 2048          # phase 3
 ACC_FLOOR = 0.75                        # least exact and early test accuracy
 EARLY_CHECK_N = 2048                    # queries in the early kernel-vs-plain check
+EARLY_TOL = 2e-5                        # of 1 + sum_j K(x, x_j) |beta_j|
 PEAK_F32_FLOPS = 67e12                  # H100 SXM, f32 without tensor cores
 PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
 SOURCES = {"kermat": ("src/repro_torch/kernels/csrc/kermat.cu",
@@ -209,6 +208,48 @@ def phase_fit_parity(torch, Xtr, ytr, Xte, yte):
         raise AssertionError(f"accuracies differ: {ak} vs {ap}")
 
 
+def early_errors(early, Xq):
+    """The early path through the kernels against its plain versions in
+    float32 and in float64, on the same queries and the same routing.
+
+    A decision sums a cluster's 58k-116k terms K(x, x_j) beta_j, which
+    cancel to values near +-1, and f32 rounding scales with the sum of their
+    magnitudes, so each difference is taken relative to
+    1 + sum_j K(x, x_j) |beta_j| (in float64); the one relative to
+    1 + |f(x)| is printed beside it.  Returns the first, by pair."""
+    import torch
+
+    from repro_torch.core.kkmeans import assign_points
+    from repro_torch.core.predict import (_early_blocks,
+                                          bucketed_cluster_scores,
+                                          decision_early, early_capacity)
+
+    kern, part = early.config.kernel, early.partition
+    got = decision_early(early, Xq).double()
+    plain = decision_early(early, Xq, use_kernels=False).double()
+    cid, _ = assign_points(kern, part.model, Xq, use_kernels=False)
+    Xm, wm = _early_blocks(early, early.weights)
+    cap = early_capacity(Xq.shape[0], part.k)
+
+    def f64(w):
+        return bucketed_cluster_scores(kern, Xq.double(), cid, Xm.double(),
+                                       w.double(), cap)[:, 0]
+
+    exact, mag = f64(wm), f64(wm.abs())
+    errs, line = {}, []
+    for pair, a, b in (("kernels-plain", got, plain),
+                       ("kernels-f64", got, exact),
+                       ("plain-f64", plain, exact)):
+        diff = (a - b).abs()
+        errs[pair] = float((diff / (1.0 + mag)).max())
+        line.append(f"{pair} {errs[pair]:.3e} (of 1 + |f|: "
+                    f"{float((diff / (1.0 + exact.abs())).max()):.3e})")
+    log(f"early decisions on {Xq.shape[0]} queries, max error of 1 + "
+        f"sum_j K |beta_j| (tolerance {EARLY_TOL:.0e}): " + "; ".join(line))
+    torch.cuda.empty_cache()
+    return errs
+
+
 def phase_main(torch, Xtr, ytr, Xte, yte, cfg):
     """Phase 4: the main path, with every launch counted."""
     import dataclasses
@@ -285,28 +326,13 @@ def phase_main(torch, Xtr, ytr, Xte, yte, cfg):
     log("early routing: queries " + json.dumps(
         torch.bincount(cid, minlength=part.k).tolist()) + " members "
         + json.dumps(part.mask.sum(axis=1).tolist()))
-    # the early path through the kernels against its plain versions on the
-    # card, on the first EARLY_CHECK_N queries (the plain path materialises
-    # the query-by-member kernel blocks).  Each decision sums a cluster's
-    # 58k-116k terms K(x, x_j) beta_j, which cancel to values near 0; f32
-    # rounding scales with the sum of their magnitudes, sum_j K |beta_j|,
-    # so kernel_matvec's tolerance is taken relative to that sum.  (Against
-    # 1 + |f(x)| the two versions differ by 1.1e-4 at half the split and
-    # 2.6e-4 at the full split.)
-    nsub = min(nq, EARLY_CHECK_N)
-    got = decision_early(early, Xte[:nsub])
-    want = decision_early(early, Xte[:nsub], use_kernels=False)
-    mag = decision_early(dataclasses.replace(early, beta=early.beta.abs()),
-                         Xte[:nsub], use_kernels=False)
-    rel = float(((got - want).abs() / (1.0 + mag)).max())
-    log(f"early kernels vs plain on {nsub} queries: max_err_over_1_plus_"
-        f"sum_abs_terms={rel:.3e} (tolerance 2e-04, kernel_matvec's); "
-        f"max_err_over_1_plus_abs_plain="
-        f"{float(((got - want).abs() / (1.0 + want.abs())).max()):.3e}")
+    errs = early_errors(early, Xte[:EARLY_CHECK_N])
     if not math.isfinite(obj) or not math.isfinite(st0["pg_max"]):
         raise AssertionError("non-finite objective or KKT residual")
-    if not rel <= 2e-4:
-        raise AssertionError(f"early decisions differ from plain: {rel}")
+    for pair in ("kernels-plain", "kernels-f64"):
+        if not errs[pair] <= EARLY_TOL:
+            raise AssertionError(f"early decisions, {pair}: {errs[pair]} > "
+                                 f"{EARLY_TOL}")
     if min(acc_exact, acc_early) < ACC_FLOOR:
         raise AssertionError(f"accuracy too low: {acc_exact}, {acc_early}")
     missing = [k for k, v in launches.items() if v == 0]
@@ -315,29 +341,47 @@ def phase_main(torch, Xtr, ytr, Xte, yte, cfg):
     return launches
 
 
-def device_busy_ms(torch, fn):
-    """Wall ms of ``fn`` and the device ms its kernels took, by name, from
-    ``torch.profiler``."""
+def wall_ms(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def device_ms(torch, fn) -> dict:
+    """Device ms of ``fn``'s kernels, by name, from ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
-    return wall, by_name
+    return by_name
+
+
+def loop_cost(torch, run, steps: int):
+    """A solver loop's cost a step, net of its set-up (``run(0)``): wall ms
+    without the profiler (the profiler slows these launch-bound loops
+    down), and device ms by kernel from the profiler."""
+    run(2)
+    wall = (wall_ms(torch, lambda: run(steps))
+            - wall_ms(torch, lambda: run(0))) / steps
+    with_steps = device_ms(torch, lambda: run(steps))
+    setup = device_ms(torch, lambda: run(0))
+    return wall, {key: (v - setup.get(key, 0.0)) / steps
+                  for key, v in with_steps.items()}
 
 
 def phase_loops(torch, Xtr, ytr, cfg):
-    """Phase 5: cost of the solver loops per step on the main path's shapes
+    """Phase 5: cost of the solver loops a step on the main path's shapes
     (greedy CD on a level-l_max cluster batch; level-0 block CD over all
-    n), with the device's busy share from the profiler."""
+    n), and the device's busy share: device time over wall time."""
     from repro_torch.core import gramop
     from repro_torch.core import solver as S
     from repro_torch.kernels import ops
@@ -350,38 +394,26 @@ def phase_loops(torch, Xtr, ytr, cfg):
     Q = ops.kernel_matrix(Xc, Xc, cfg.kernel)
     Q.mul_(yc[:, :, None]).mul_(yc[:, None, :])
     steps = 300
-    S.solve_box_qp(Q, cfg.C, tol=-1.0, max_iters=10)
-    wall, dev = device_busy_ms(
-        torch, lambda: S.solve_box_qp(Q, cfg.C, tol=-1.0, max_iters=steps))
-    log(f"loop greedy CD ({k}, {nc}) x {steps} steps: "
-        f"{wall / steps:.4f} ms/step, device busy "
-        f"{100 * sum(dev.values()) / wall:.1f}%")
+    wall, dev = loop_cost(
+        torch, lambda s: S.solve_box_qp(Q, cfg.C, tol=-1.0, max_iters=s), steps)
+    busy = sum(dev.values())
+    log(f"loop greedy CD ({k}, {nc}) x {steps} steps: {wall:.4f} ms/step, "
+        f"device {busy:.4f} ms/step, device busy {100 * busy / wall:.1f}%")
     del Q
     op = gramop.GramOperator(Xd=Xtr, s=ytr, kernel=cfg.kernel,
                              use_kernels=True)
     iters = 50
-    wall, dev = device_busy_ms(
-        torch, lambda: S.solve_box_qp_op(op, cfg.C, tol=-1.0,
-                                         max_iters=iters))
-    # the initial gradient (one kernel_matvec over all n) is not a step
-    init = sum(v for key, v in dev.items() if "kernel_matvec" in key)
-    busy = sum(dev.values()) - init
+    wall, dev = loop_cost(
+        torch, lambda s: S.solve_box_qp_op(op, cfg.C, tol=-1.0, max_iters=s),
+        iters)
+    busy = sum(dev.values())
     cd = sum(v for key, v in dev.items() if "cd_column_update" in key)
     log(f"loop level-0 block CD (n={n}, B=64) x {iters} iters: "
-        f"{(wall - init) / iters:.4f} ms/iter, device busy "
-        f"{100 * busy / (wall - init):.1f}% (cd_column_update "
-        f"{cd / iters:.4f} ms/iter; initial gradient {init:.1f} ms)")
+        f"{wall:.4f} ms/iter, device {busy:.4f} ms/iter, device busy "
+        f"{100 * busy / wall:.1f}% (cd_column_update {cd:.4f} ms/iter)")
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n-train", type=int, default=MAIN_N_TRAIN,
-                    help="training points of the main path (default: half "
-                         "the covtype split; 464810 runs all of it)")
-    args = ap.parse_args(argv)
-    n_main = min(args.n_train, N_TRAIN)
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -420,13 +452,9 @@ def main(argv=None) -> int:
     if (Xtr.shape[0], Xte.shape[0]) != (N_TRAIN, N_TEST):
         raise AssertionError(f"split {Xtr.shape[0]}/{Xte.shape[0]}")
     Xtr, ytr, Xte, yte = (torch.from_numpy(a).to(DEV)
-                          for a in (Xtr[:n_main], ytr[:n_main],
-                                    Xte, yte))
+                          for a in (Xtr, ytr, Xte, yte))
     log(f"data: covtype_like {Xtr.shape[0]} train / {Xte.shape[0]} test, "
         f"d={Xtr.shape[1]}, {time.perf_counter() - t0:.2f}s")
-    if n_main < N_TRAIN:
-        log("reduced " + json.dumps({"n_train": n_main,
-                                     "full_n_train": N_TRAIN}))
 
     cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=1.0), C=8.0, k=4, levels=4,
                       m=1000, gram_budget=GRAM_BUDGET, seed=SEED)

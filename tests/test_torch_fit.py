@@ -148,6 +148,12 @@ def test_carried_weights_predict_the_same(data, reference_fits, use_kernels):
         rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("nq", [0, 1, 7, 8, 9, 100, 4096, 4097, 10000])
+def test_bucket_size_matches_reference(nq):
+    assert P.bucket_size(nq) == JP.bucket_size(nq)
+    assert P.bucket_size(nq, lo=16, hi=64) == JP.bucket_size(nq, lo=16, hi=64)
+
+
 def test_unported_features_raise():
     for field, value in (("compute_dtype", "bfloat16"), ("host_spill", True),
                          ("col_cache_cap", 8), ("trace", 16)):

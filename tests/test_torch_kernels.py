@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import gramop as jgramop
 from repro.core.kernels import Kernel as JKernel
 from repro.core.kernels import gram as jgram
 from repro.core.kernels import gram_matvec as jgram_matvec
 from repro.kernels import ops as jops
+from repro_torch.core import gramop
 from repro_torch.core.kernels import Kernel, gram, gram_matvec
 from repro_torch.kernels import ops, ref
 
@@ -93,6 +95,54 @@ def test_core_gram_and_matvec_match_reference():
             np.testing.assert_allclose(
                 got.numpy(), np.asarray(jgram_matvec(jk, X, v, num_chunks=4)),
                 rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("kw", KINDS, ids=IDS)
+def test_q_rows_matches_reference(kw):
+    rng = np.random.default_rng(11)
+    X, Xb = _data(12, (150, 13), (20, 13))
+    y = np.sign(rng.standard_normal(150)).astype(np.float32)
+    yb = np.sign(rng.standard_normal(20)).astype(np.float32)
+    want = np.asarray(jops.q_rows(X, y, Xb, yb, JKernel(**kw), bm=64, bn=64))
+    got = ops.q_rows(*_t(X, y, Xb, yb), Kernel(**kw)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["plain", "kernels"])
+@pytest.mark.parametrize("kw", KINDS, ids=IDS)
+def test_gram_operator_matches_reference(kw, use_kernels):
+    rng = np.random.default_rng(13)
+    (X,) = _data(14, (120, 9))
+    s = np.sign(rng.standard_normal(120)).astype(np.float32)
+    v = rng.standard_normal(120).astype(np.float32)
+    idx = rng.choice(120, size=16, replace=False)
+    delta = rng.standard_normal(16).astype(np.float32)
+    jop = jgramop.GramOperator(Xd=X, s=s, kernel=JKernel(**kw),
+                               use_pallas=use_kernels)
+    top = gramop.GramOperator(Xd=torch.from_numpy(X), s=torch.from_numpy(s),
+                              kernel=Kernel(**kw), use_kernels=use_kernels)
+    tidx = torch.from_numpy(idx)
+    for name, got, want, tol in (
+            ("kernel_rows", top.kernel_rows(tidx), jop.kernel_rows(idx), 2e-5),
+            ("q_block", top.q_block(tidx), jop.q_block(idx), 2e-5),
+            ("qbb", top.qbb(tidx), jop.qbb(idx), 2e-5),
+            ("matvec", top.matvec(torch.from_numpy(v), num_chunks=4),
+             jop.matvec(v, num_chunks=4), 2e-4),
+            ("col_update",
+             top.col_update(torch.from_numpy(v), tidx, torch.from_numpy(delta)),
+             jop.col_update(v, idx, delta), 2e-4)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                                   atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("n_elems,budget,itemsize",
+                         [(0, 0, 4), (256, 1024, 4), (257, 1024, 4),
+                          (128, 1024, 8), (129, 1024, 8), (2 ** 31, 2 ** 33, 4)])
+def test_fits_budget_matches_reference(n_elems, budget, itemsize):
+    dtype = {4: np.float32, 8: np.float64}[itemsize]
+    assert (gramop.fits_budget(n_elems, budget, itemsize=itemsize)
+            == jgramop.fits_budget(n_elems, budget, dtype=dtype))
 
 
 def test_wrappers_check_their_inputs():
