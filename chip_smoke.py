@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one GPU and the CUDA
 toolkit.  It builds the hand-written kernels from src/repro_torch/kernels/
-csrc/ with nvcc (into build/repro_torch_kernels/) and runs five phases:
+csrc/ with nvcc (into build/repro_torch_kernels/) and runs six phases:
 
 1. environment: card, power limit, versions, kernel build time; TF32 off;
 2. each kernel against its plain PyTorch version on the card, at the main
@@ -20,7 +20,16 @@ csrc/ with nvcc (into build/repro_torch_kernels/) and runs five phases:
    prediction, with the launch count of every kernel over that run; the
    early path through the kernels is held against its plain versions in
    float32 and float64 on the same queries;
-5. the solver loops' cost per step at the main path's shapes: wall time
+5. serving phase 4's early model (level-1 alpha, level-1 partition): a
+   round-trip export (every SV, BCM) served exact and early (all queries)
+   and bcm (the first 16,384) through serve_batch in 4,096-row buckets,
+   exact and early held to
+   decision_exact and decision_early; the default export (4,096 SVs a
+   cluster, BCM) served bcm and early; the request loop of each strategy
+   (50 batches of 256, then a ragged bucketed stream); the serve CLI at
+   its defaults for each strategy; with the launch count of every kernel
+   over the serving path;
+6. the solver loops' cost per step at the main path's shapes: wall time
    without the profiler, device time from torch.profiler, and their ratio,
    the device's busy share.
 
@@ -52,7 +61,15 @@ SOURCES = {"kermat": ("src/repro_torch/kernels/csrc/kermat.cu",
            "kernel_matvec": ("src/repro_torch/kernels/csrc/kermatvec.cu",
                              "src/repro/kernels/kermatvec.py:80"),
            "cd_column_update": ("src/repro_torch/kernels/csrc/cd_update.cu",
-                                "src/repro/kernels/cd_update.py:78")}
+                                "src/repro/kernels/cd_update.py:78"),
+           "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
+                             "src/repro/kernels/kmeans_assign.py:58")}
+ASSIGN_TOL = 1e-4                       # kmeans_assign scores (absolute)
+ASSIGN_TIE = 2e-4                       # gap below which an argmin may differ
+SERVE_BUCKET = 4096                     # query rows a serving call
+SERVE_LOOP = (50, 256)                  # the serve CLI's request loop
+SERVE_STRATEGIES = ("exact", "early", "bcm")
+BCM_CHECK_N = 4 * SERVE_BUCKET          # queries of the every-SV bcm check
 
 
 def log(*a):
@@ -80,7 +97,7 @@ def bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernels(torch, Xtr, cfg_main, k_leaves):
+def phase_kernels(torch, Xtr, Xq_test, cfg_main, k_leaves):
     """Phase 2: each kernel against its plain version at main-path shapes."""
     from repro_torch.core.predict import early_capacity
     from repro_torch.kernels import ops, ref
@@ -175,7 +192,68 @@ def phase_kernels(torch, Xtr, cfg_main, k_leaves):
                           bound_ms=bound_ms, bound_by=bound_by,
                           matmul_ms=mm_ms)
         torch.cuda.empty_cache()
+    # kmeans_assign at the level-l_max assignment (all n points against the
+    # m-point sample, k^l_max centres) and at the eq.-11 routing of the test
+    # queries (k centres); centres from kernel k-means on the sample
+    shapes = {"level": (Xtr, k_leaves), "routing": (Xq_test, k1)}
+    for which, (Xa, k) in shapes.items():
+        rows["kmeans_assign" if which == "level" else "kmeans_assign_routing"] \
+            = assign_case(torch, Xa, Xtr, k, kern, cfg_main.m)
     return rows
+
+
+def assign_case(torch, Xa, Xtr, k, kern, m):
+    """``kmeans_assign`` against its plain version on one shape: scores to
+    ASSIGN_TOL, assignments equal except where the plain version's two best
+    scores lie within ASSIGN_TIE."""
+    from repro_torch.core.kkmeans import kernel_kmeans
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator().manual_seed(SEED)
+    sample = torch.randperm(Xtr.shape[0], generator=gen)[:m].to(DEV)
+    Xm = Xtr[sample].contiguous()
+    Kmm = ref.kermat_ref(Xm, Xm, gamma=kern.gamma)
+    _, W, s = kernel_kmeans(Kmm, k, torch.randperm(m, generator=gen))
+    W = W.contiguous()
+    s = torch.where(W.sum(0) <= 0, torch.inf, s).contiguous()
+    n, d = Xa.shape
+
+    def run():
+        return ops.kmeans_assign(Xa, Xm, W, s, kern.gamma)
+
+    def plain():
+        return ref.kmeans_assign_ref(Xa, Xm, W, s, gamma=kern.gamma)
+
+    got_a, got_s = run()
+    want_a, want_s = plain()
+    torch.cuda.synchronize()
+    err = float((got_s - want_s).abs().max())
+    top2 = torch.topk(want_s, min(2, k), dim=1, largest=False).values
+    clear = ((top2[:, 1] - top2[:, 0]) >= ASSIGN_TIE if k > 1
+             else torch.ones(n, dtype=torch.bool, device=DEV))
+    differ = int((got_a != want_a)[clear].sum())
+    ties = int((~clear).sum())
+    del got_a, got_s, want_a, want_s, top2, clear
+    ms = cuda_ms(torch, run, 5)
+    plain_ms = cuda_ms(torch, plain, 2)
+    mm_ms = cuda_ms(torch, lambda: (Xa @ Xm.T) @ W, 5)
+    flops = 2 * n * m * (d + k)
+    bound_ms, bound_by = bound(flops, 4 * ((n + m) * d + m * k + k + n * k)
+                               + 8 * n)
+    log(f"kernel kmeans_assign ({n}, {d}) x ({m}, {d}), k={k}: "
+        f"max_abs_err={err:.3e} (tolerance {ASSIGN_TOL:.0e}) "
+        f"assignments_differing={differ} near_ties={ties} (gap < "
+        f"{ASSIGN_TIE:.0e}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"library_ms(torch.matmul, the two products only)={mm_ms:.4f}")
+    if not err <= ASSIGN_TOL:
+        raise AssertionError(f"kmeans_assign scores disagree: {err}")
+    if differ:
+        raise AssertionError(f"kmeans_assign: {differ} assignments differ "
+                             "outside near-ties")
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, matmul_ms=mm_ms)
 
 
 def phase_fit_parity(torch, Xtr, ytr, Xte, yte):
@@ -338,6 +416,168 @@ def phase_main(torch, Xtr, ytr, Xte, yte, cfg):
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    if launches["kmeans_assign"] < cfg.levels + 1:
+        raise AssertionError("kmeans_assign did not route every fit level "
+                             f"and the early path: {launches}")
+    return launches, early, d_level1, d_early
+
+
+def serve_all(sm, Xq, kern, strategy):
+    """Serve every query in SERVE_BUCKET-row calls; (classes, scores)."""
+    import torch
+
+    from repro_torch.launch.serve_svm import serve_batch
+
+    outs = [serve_batch(sm, Xq[i:i + SERVE_BUCKET], kern, strategy,
+                        bucket=SERVE_BUCKET)
+            for i in range(0, Xq.shape[0], SERVE_BUCKET)]
+    return (torch.cat([p for p, _ in outs]), torch.cat([s for _, s in outs]))
+
+
+def phase_serving(torch, early, Xte, yte, d_eq10, d_early):
+    """Phase 5: the serving path on phase 4's early model (the level-1
+    local models on the k = 4 level-1 partition, n = 464,810, d = 54), with
+    every launch counted: a round-trip export (every SV, BCM) served exact,
+    early and bcm; the default export (4,096 SVs a cluster, BCM) served bcm
+    and early; the request loop of each strategy on the default export;
+    the serve CLI at its defaults.
+
+    Eq. 11 scores a query with its cluster's local model only, which is
+    what the level-l alpha solves for; the final alpha's decisions cancel
+    across clusters, so the early model is the one served here."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from repro_torch.core import accuracy, decision_early, decision_exact
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_svm import (_bcm_factor,
+                                              export_serving_model,
+                                              run_request_loop)
+
+    kern = early.config.kernel
+    part = early.partition
+    sv_per_cluster = [int((early.weights[torch.as_tensor(
+        part.idx[c][part.mask[c]], device=DEV)] != 0).sum())
+        for c in range(part.k)]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sm_rt = export_serving_model(early,
+                                 max_sv_per_cluster=max(sv_per_cluster))
+    torch.cuda.synchronize()
+    t_rt = time.perf_counter() - t0
+    served = {}
+    for strategy in SERVE_STRATEGIES:
+        t0 = time.perf_counter()
+        served[strategy] = serve_all(
+            sm_rt, Xte[:BCM_CHECK_N] if strategy == "bcm" else Xte, kern,
+            strategy)
+        torch.cuda.synchronize()
+        served[strategy] += (time.perf_counter() - t0,)
+    del sm_rt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sm = export_serving_model(early)
+    torch.cuda.synchronize()
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _bcm_factor(kern, sm.Xsv, sm.svmask, 1e-2, True)
+    torch.cuda.synchronize()
+    t_bcm = time.perf_counter() - t0
+    served_default = {}
+    for strategy in ("bcm", "early"):
+        t0 = time.perf_counter()
+        served_default[strategy] = serve_all(sm, Xte, kern, strategy)
+        torch.cuda.synchronize()
+        served_default[strategy] += (time.perf_counter() - t0,)
+    rng = np.random.default_rng(SEED)
+    idx = rng.integers(0, Xte.shape[0], size=SERVE_LOOP)
+    fixed = Xte[torch.as_tensor(idx, device=DEV)]
+    sizes = rng.choice([b for b in (1, 4, 16, 64, 256, 1000, 3000)
+                        if b <= Xte.shape[0] // 2], size=SERVE_LOOP[0])
+    starts = rng.integers(0, Xte.shape[0] - int(sizes.max()), SERVE_LOOP[0])
+    ragged = [Xte[a:a + int(b)] for a, b in zip(starts, sizes)]
+    reports = []
+    for strategy in SERVE_STRATEGIES:
+        for batches, bucketed in ((fixed, False), (ragged, True)):
+            reports.append(run_request_loop(sm, kern, strategy, batches,
+                                            bucketed=bucketed))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    log("serving kernels " + json.dumps(launches))
+
+    # the round trip against the training-side decisions on the same
+    # routing, relative to 1 + sum_j K(x, x_j) |beta_j| (see early_errors)
+    absm = dataclasses.replace(early, beta=early.weights.abs())
+    checks = {"exact": (d_eq10, decision_exact(absm, Xte)),
+              "early": (d_early, decision_early(absm, Xte))}
+    accs = {}
+    for strategy, (pred, scores, secs) in served.items():
+        nq = pred.shape[0]
+        accs[strategy] = accuracy(yte[:nq], pred)
+        line = (f"serve round trip {strategy}: {nq} queries in "
+                f"{SERVE_BUCKET}-row buckets, {secs:.3f}s, accuracy "
+                f"{accs[strategy]:.4f}")
+        if strategy in checks:
+            want, mag = checks[strategy]
+            err = float(((scores[:, 1] - want).abs() / (1.0 + mag)).max())
+            sym = float(((scores[:, 0] + scores[:, 1]).abs()
+                         / (1.0 + mag)).max())
+            line += (f", max error against decision_{strategy} of 1 + sum_j "
+                     f"K |beta_j| {err:.3e} (tolerance {EARLY_TOL:.0e})")
+            if not max(err, sym) <= EARLY_TOL:
+                raise AssertionError(f"serve {strategy} disagrees with "
+                                     f"decision_{strategy}: {err}, {sym}")
+        elif scores.shape != (nq, 2) or not bool(
+                torch.isfinite(scores).all()):
+            raise AssertionError(f"serve {strategy} malformed")
+        log(line)
+    log(f"serve export: round trip (every SV: max_sv_per_cluster "
+        f"{max(sv_per_cluster)}, BCM) {t_rt:.3f}s; default "
+        f"(max_sv_per_cluster 4096, BCM) {t_export:.3f}s, SVs per cluster "
+        f"{sv_per_cluster}, thinned clusters "
+        f"{sum(c > 4096 for c in sv_per_cluster)}, BCM Gram + Cholesky of "
+        f"{tuple(sm.Lchol.shape)} {t_bcm:.3f}s")
+    for strategy, (pred, scores, secs) in served_default.items():
+        if scores.shape != (Xte.shape[0], 2) or not bool(
+                torch.isfinite(scores).all()):
+            raise AssertionError(f"serve {strategy} (default export) "
+                                 "malformed")
+        log(f"serve default export {strategy}: {secs:.3f}s, accuracy "
+            f"{accuracy(yte, pred):.4f} (thinned SV blocks; not held to "
+            f"{ACC_FLOOR})")
+    for rep in reports:
+        log("serve loop " + json.dumps(rep))
+        if rep["compiles_timed"] != 0:
+            raise AssertionError(f"kernel libraries loaded inside the timed "
+                                 f"loop: {rep}")
+    low = {k: v for k, v in accs.items() if v < ACC_FLOOR}
+    if low:
+        raise AssertionError(f"serving accuracy below {ACC_FLOOR}: {low}")
+    missing = [k for k in ("kermat", "kmeans_assign") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the serving path: "
+                             f"{missing}")
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for strategy in SERVE_STRATEGIES:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve_svm",
+             "--strategy", strategy], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"serve CLI --strategy {strategy} failed:\n"
+                                 f"{out.stdout}\n{out.stderr}")
+        lines = out.stdout.strip().splitlines()
+        acc = float(next(line for line in lines if line.startswith(
+            "serving accuracy")).split(": ")[1])
+        log(f"serve CLI --strategy {strategy} ({time.perf_counter() - t0:.1f}s"
+            f" in all): " + " | ".join(lines))
+        if not acc > ACC_FLOOR:
+            raise AssertionError(f"serve CLI accuracy {acc} <= {ACC_FLOOR}")
     return launches
 
 
@@ -459,14 +699,20 @@ def main() -> int:
     cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=1.0), C=8.0, k=4, levels=4,
                       m=1000, gram_budget=GRAM_BUDGET, seed=SEED)
     t0 = time.perf_counter()
-    rows = phase_kernels(torch, Xtr, cfg, cfg.k ** cfg.levels)
+    rows = phase_kernels(torch, Xtr, Xte, cfg, cfg.k ** cfg.levels)
     log(f"phase kernels: {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     phase_fit_parity(torch, Xtr, ytr, Xte, yte)
     log(f"phase fit parity: {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
-    launches = phase_main(torch, Xtr, ytr, Xte, yte, cfg)
+    launches, early, d_eq10, d_early = phase_main(torch, Xtr, ytr, Xte, yte,
+                                                  cfg)
     log(f"phase main path: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    serving = phase_serving(torch, early, Xte, yte, d_eq10, d_early)
+    del early, d_eq10, d_early
+    torch.cuda.empty_cache()
+    log(f"phase serving: {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     phase_loops(torch, Xtr, ytr, cfg)
     log(f"phase loops: {time.perf_counter() - t0:.2f}s")
@@ -474,12 +720,19 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = rows[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None,
-                        "matmul_only_ms": r["matmul_ms"]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "launches_serving": serving[name],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": None,
+               "matmul_only_ms": r["matmul_ms"]}
+        if name == "kmeans_assign":
+            rt = rows["kmeans_assign_routing"]
+            row.update({f"routing_{key}": rt[key] for key in
+                        ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "matmul_ms")})
+        kernels.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

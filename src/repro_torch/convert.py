@@ -7,6 +7,9 @@ trained on a TPU predicts the same here:
     arrays = {"X": ..., "y": ..., "alpha": ..., "beta": ...,
               "assign": ..., "idx": ..., "mask": ...,   # the partition
               "Xm": ..., "W": ..., "s": ...}            # its routing model
+
+``from_jax_multiclass`` does the same for a reference ``MulticlassModel``,
+with "classes" and "Y" in place of "y" and "beta".
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.core.dcsvm import DCSVMConfig, DCSVMModel
 from repro_torch.core.kkmeans import KKMeansModel, Partition
+from repro_torch.core.multiclass import MulticlassModel
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -26,18 +30,38 @@ def from_jax_arrays(d: Dict[str, np.ndarray], cfg: DCSVMConfig,
     """Build a port ``DCSVMModel`` from a reference model's arrays.  The
     partition keys are optional (an exact-only model has none)."""
     dev = resolve_device(device)
-
-    def t(name):
-        return torch.as_tensor(np.array(d[name], np.float32), device=dev)
-
-    partition = None
-    if "idx" in d:
-        idx = np.asarray(d["idx"], np.int64)
-        partition = Partition(
-            assign=np.asarray(d["assign"], np.int32), idx=idx,
-            mask=np.asarray(d["mask"], bool), k=idx.shape[0], nc=idx.shape[1],
-            model=KKMeansModel(Xm=t("Xm"), W=t("W"), s=t("s")))
+    t = _tensors(d, dev)
     return DCSVMModel(config=cfg, X=t("X"), y=t("y"), alpha=t("alpha"),
-                      partition=partition, is_early=is_early,
+                      partition=_partition(d, t), is_early=is_early,
                       level_stats=list(level_stats or []),
                       beta=t("beta") if "beta" in d else None)
+
+
+def from_jax_multiclass(d: Dict[str, np.ndarray], cfg: DCSVMConfig,
+                        device: DeviceLike = None, is_early: bool = False,
+                        level_stats: Optional[list] = None
+                        ) -> MulticlassModel:
+    """Build a port ``MulticlassModel`` from a reference one-vs-all model's
+    arrays ("X", "classes", "Y", "alpha" and the optional partition keys)."""
+    t = _tensors(d, resolve_device(device))
+    return MulticlassModel(config=cfg, X=t("X"),
+                           classes=np.asarray(d["classes"]), Y=t("Y"),
+                           alpha=t("alpha"), partition=_partition(d, t),
+                           is_early=is_early,
+                           level_stats=list(level_stats or []))
+
+
+def _tensors(d: Dict[str, np.ndarray], dev: torch.device):
+    def t(name):
+        return torch.as_tensor(np.array(d[name], np.float32), device=dev)
+    return t
+
+
+def _partition(d: Dict[str, np.ndarray], t) -> Optional[Partition]:
+    if "idx" not in d:
+        return None
+    idx = np.asarray(d["idx"], np.int64)
+    return Partition(
+        assign=np.asarray(d["assign"], np.int32), idx=idx,
+        mask=np.asarray(d["mask"], bool), k=idx.shape[0], nc=idx.shape[1],
+        model=KKMeansModel(Xm=t("Xm"), W=t("W"), s=t("s")))

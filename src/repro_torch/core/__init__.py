@@ -1,13 +1,24 @@
 """DC-SVM core: kernels, tasks, solvers, kernel k-means, the kernel
-operator, Algorithm 1 and prediction."""
+operator, Algorithm 1, one-vs-all and prediction."""
 from repro_torch.core.dcsvm import (DCSVMConfig, DCSVMModel, fit,
                                     objective_value)
 from repro_torch.core.kernels import Kernel, gram, gram_matvec
-from repro_torch.core.predict import (accuracy, decision_early,
-                                      decision_exact, predict_early,
-                                      predict_exact)
+from repro_torch.core.multiclass import (MulticlassModel, fit_ova,
+                                         labels_to_ova, ova_cost_vectors)
+from repro_torch.core.predict import (accuracy, accuracy_multiclass,
+                                      decision_bcm, decision_bcm_ova,
+                                      decision_early, decision_early_ova,
+                                      decision_exact, decision_exact_ova,
+                                      predict_bcm, predict_bcm_ova,
+                                      predict_early, predict_early_ova,
+                                      predict_exact, predict_exact_ova)
 from repro_torch.core.tasks import CSVC
 
-__all__ = ["CSVC", "DCSVMConfig", "DCSVMModel", "Kernel", "accuracy",
-           "decision_early", "decision_exact", "fit", "gram", "gram_matvec",
-           "objective_value", "predict_early", "predict_exact"]
+__all__ = ["CSVC", "DCSVMConfig", "DCSVMModel", "Kernel", "MulticlassModel",
+           "accuracy", "accuracy_multiclass", "decision_bcm",
+           "decision_bcm_ova", "decision_early", "decision_early_ova",
+           "decision_exact", "decision_exact_ova", "fit", "fit_ova", "gram",
+           "gram_matvec", "labels_to_ova", "objective_value",
+           "ova_cost_vectors", "predict_bcm", "predict_bcm_ova",
+           "predict_early", "predict_early_ova", "predict_exact",
+           "predict_exact_ova"]

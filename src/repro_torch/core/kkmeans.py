@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.kernels import Kernel, gram
+from repro_torch.core.kernels import Kernel, gram, resolve_use_kernels
 
 
 class KKMeansModel(NamedTuple):
@@ -79,12 +79,34 @@ def assign_points(kernel: Kernel, model: KKMeansModel, X: torch.Tensor,
                   use_kernels: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest-center assignment.  Returns (assign, D).  Empty centers (zero
-    W column) get distance +inf, so a phantom center never captures points."""
+    W column) get distance +inf, so a phantom center never captures points.
+
+    With ``use_kernels`` and an RBF kernel the scores come from the fused
+    ``kmeans_assign`` kernel, which never holds the (n, m) cross-kernel in
+    memory; an empty center's self-term is set to +inf before the launch,
+    so the kernel's own argmin already skips it."""
+    empty = torch.sum(model.W, dim=0) <= 0.0
+    if use_kernels and kernel.kind == "rbf":
+        from repro_torch.kernels import ops
+
+        s = torch.where(empty, torch.inf, model.s)
+        assign, scores = ops.kmeans_assign(
+            X.contiguous(), model.Xm.contiguous(), model.W.contiguous(),
+            s.contiguous(), kernel.gamma)
+        return assign, scores + kernel.diag(X)[:, None]
     Knm = gram(kernel, X, model.Xm, use_kernels=use_kernels)    # (n, m)
     D = kernel.diag(X)[:, None] - 2.0 * (Knm @ model.W) + model.s[None, :]
-    empty = torch.sum(model.W, dim=0) <= 0.0
     D = torch.where(empty[None, :], torch.inf, D)
     return torch.argmin(D, dim=1), D
+
+
+def route(kernel: Kernel, model: KKMeansModel, X: torch.Tensor,
+          use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """Serving-time router: cluster id per query point (early prediction).
+    ``use_kernels=None`` takes the kernels on a CUDA device."""
+    return assign_points(kernel, model, X,
+                         use_kernels=resolve_use_kernels(use_kernels,
+                                                         X.device))[0]
 
 
 def balanced_assign(D: np.ndarray, capacity: int) -> np.ndarray:

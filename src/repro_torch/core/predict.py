@@ -1,10 +1,15 @@
-"""Prediction for DC-SVM models (port of ``repro.core.predict``, binary).
+"""Prediction for DC-SVM models (port of ``repro.core.predict``, C-SVC).
 
 * ``decision_exact``  -- f(x) = sum_i beta_i K(x, x_i) over all support
   vectors: one streaming ``kernel_matvec`` launch with ``use_kernels``,
   SV chunks of plain torch otherwise.
 * ``decision_early``  -- paper eq. 11: route x to its nearest kernel-kmeans
   cluster and score it with that cluster's local model only.
+* ``decision_bcm``    -- Bayesian Committee Machine combination of the k
+  local models (the paper's Table-1 baseline).
+
+The ``*_ova`` variants score one-vs-all models (``core.multiclass``): one
+decision column per class and an argmax over them.
 """
 from __future__ import annotations
 
@@ -14,30 +19,32 @@ import numpy as np
 import torch
 
 from repro_torch.core.dcsvm import DCSVMModel
-from repro_torch.core.kernels import Kernel, resolve_use_kernels
-from repro_torch.core.kkmeans import assign_points
+from repro_torch.core.kernels import Kernel, gram, resolve_use_kernels
+from repro_torch.core.kkmeans import KKMeansModel, assign_points
 
 
 def bucketed_cluster_scores(kern: Kernel, Xq: torch.Tensor, cid: torch.Tensor,
                             Xblocks: torch.Tensor, Wblocks: torch.Tensor,
-                            cap: int, use_kernels: bool = False
+                            cap: int, use_kernels: bool = False,
+                            offsets: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """Score every query against ONLY its assigned cluster's block.
 
-    ``Xblocks``: (k, nc, d) per-cluster members, ``Wblocks``: (k, nc, 1)
-    per-member weights (zero on pad slots).  Returns (nq, 1).  Queries are
-    bucketed into a (k, cap, d) buffer and all clusters are scored in one
-    batched kernel matvec; a cluster holding more than ``cap`` queries takes
-    further rounds of the same program.  The buckets, scores and results
-    stay on the device; the host reads one scalar, the largest in-cluster
-    rank, to know the number of rounds."""
+    ``Xblocks``: (k, nc, d) per-cluster members, ``Wblocks``: (k, nc, C)
+    per-member weights (zero on pad slots).  Returns (nq, C).  ``offsets``
+    (k, C), when given, is subtracted from each query's score by its
+    cluster.  Queries are bucketed into a (k, cap, d) buffer and all
+    clusters are scored in one batched launch: ``kernel_matvec`` for one
+    column, ``kermat`` then a batched product for more.  A cluster holding
+    more than ``cap`` queries takes further rounds of the same program.
+    The buckets, scores and results stay on the device; the host reads one
+    scalar, the largest in-cluster rank, to know the number of rounds."""
     nq, d = Xq.shape
     k = Xblocks.shape[0]
     n_out = Wblocks.shape[-1]
-    if n_out != 1:
-        raise NotImplementedError("one output column only (binary models)")
+    acc = torch.promote_types(Xq.dtype, torch.float32)
     if nq == 0:
-        return torch.zeros((0, 1), dtype=Xq.dtype, device=Xq.device)
+        return torch.zeros((0, n_out), dtype=Xq.dtype, device=Xq.device)
     dev = Xq.device
     order = torch.argsort(cid, stable=True)
     sc = cid[order]
@@ -46,66 +53,95 @@ def bucketed_cluster_scores(kern: Kernel, Xq: torch.Tensor, cid: torch.Tensor,
     pos = torch.arange(nq, device=dev) - seg_start[sc]    # rank in its cluster
     rounds = int(pos.max()) // cap + 1
     Xs = Xq[order]
-    out = torch.zeros((nq, 1), dtype=torch.promote_types(Xq.dtype,
-                                                         torch.float32),
-                      device=dev)
+    out = torch.zeros((nq, n_out), dtype=acc, device=dev)
+    if use_kernels:
+        from repro_torch.kernels import ops
+
+        Xblocks = Xblocks.contiguous()
+        if n_out == 1:
+            w1 = Wblocks[..., 0].contiguous()
     for r in range(rounds):
         in_r = (pos >= r * cap) & (pos < (r + 1) * cap)
         row, col = sc[in_r], pos[in_r] - r * cap
         qbuf = torch.zeros((k, cap, d), dtype=Xq.dtype, device=dev)
         qbuf[row, col] = Xs[in_r]
-        if use_kernels:
-            from repro_torch.kernels import ops
-
-            scores = ops.kernel_matvec(qbuf, Xblocks.contiguous(),
-                                       Wblocks[..., 0].contiguous(), kern)
+        if use_kernels and n_out == 1:
+            scores = ops.kernel_matvec(qbuf, Xblocks, w1, kern)[..., None]
+        elif use_kernels:
+            scores = ops.kernel_matrix(qbuf, Xblocks, kern) @ Wblocks
         else:
-            scores = (kern.pairwise(qbuf, Xblocks) @ Wblocks)[..., 0]
-        out[order[in_r], 0] = scores[row, col].to(out.dtype)
+            scores = kern.pairwise(qbuf, Xblocks) @ Wblocks
+        out[order[in_r]] = scores[row, col].to(acc)
+    if offsets is not None:
+        out = out - offsets[cid]
     return out.to(Xq.dtype)
 
 
+def _early_program(kern: Kernel, Xq: torch.Tensor, route_model: KKMeansModel,
+                   Xblocks: torch.Tensor, Wblocks: torch.Tensor, cap: int,
+                   use_kernels: bool = False,
+                   offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Route + bucketed local scoring (paper eq. 11)."""
+    cid, _ = assign_points(kern, route_model, Xq, use_kernels=use_kernels)
+    return bucketed_cluster_scores(kern, Xq, cid, Xblocks, Wblocks, cap,
+                                   use_kernels=use_kernels, offsets=offsets)
+
+
 def _decision_scan(kern: Kernel, Xq: torch.Tensor, Xs: torch.Tensor,
-                   w: torch.Tensor, chunk: int) -> torch.Tensor:
-    """K(Xq, Xs) @ w over SV chunks, never more than an (nq, chunk) kernel
-    block live."""
-    out = torch.zeros(Xq.shape[0], dtype=Xq.dtype, device=Xq.device)
+                   W: torch.Tensor, chunk: int, use_kernels: bool = False
+                   ) -> torch.Tensor:
+    """K(Xq, Xs) @ W over SV chunks, never more than an (nq, chunk) kernel
+    block live.  W is (ns, C): one weight column per output."""
+    out = torch.zeros((Xq.shape[0], W.shape[1]), dtype=Xq.dtype,
+                      device=Xq.device)
     for i in range(0, Xs.shape[0], chunk):
-        out = out + kern.pairwise(Xq, Xs[i:i + chunk]) @ w[i:i + chunk]
+        out = out + gram(kern, Xq, Xs[i:i + chunk],
+                         use_kernels=use_kernels) @ W[i:i + chunk]
     return out
+
+
+def _query(model, Xq) -> torch.Tensor:
+    return torch.as_tensor(Xq, device=model.X.device).to(model.X.dtype)
+
+
+def _use_kernels(model, use_kernels: Optional[bool]) -> bool:
+    if use_kernels is None:
+        use_kernels = model.config.use_kernels
+    return resolve_use_kernels(use_kernels, model.X.device)
 
 
 def decision_exact(model: DCSVMModel, Xq, chunk: int = 4096,
                    use_kernels: Optional[bool] = None) -> torch.Tensor:
     """f(x) = sum_i beta_i K(x_i, x) over all support vectors."""
-    Xq = torch.as_tensor(Xq, device=model.X.device).to(model.X.dtype)
+    Xq = _query(model, Xq)
     sv = torch.as_tensor(model.sv_index, device=model.X.device)
     if len(sv) == 0:
         return torch.zeros(Xq.shape[0], dtype=Xq.dtype, device=Xq.device)
-    if use_kernels is None:
-        use_kernels = model.config.use_kernels
     Xs = model.X[sv]
     w = model.weights[sv]
     kern = model.config.kernel
-    if resolve_use_kernels(use_kernels, Xq.device):
+    if _use_kernels(model, use_kernels):
         from repro_torch.kernels import ops
 
         return ops.kernel_matvec(Xq.contiguous(), Xs.contiguous(),
                                  w.contiguous(), kern).to(Xq.dtype)
-    return _decision_scan(kern, Xq, Xs, w, chunk)
+    return _decision_scan(kern, Xq, Xs, w[:, None], chunk)[:, 0]
 
 
 def predict_exact(model: DCSVMModel, Xq) -> torch.Tensor:
     return torch.sign(decision_exact(model, Xq))
 
 
-def _early_blocks(model: DCSVMModel, w: torch.Tensor):
-    """Per-cluster member blocks (k, nc, d) and weights (k, nc, 1)."""
+def _early_blocks(model, w: torch.Tensor):
+    """Per-cluster member blocks (k, nc, d) and weights (k, nc, C) of a
+    partitioned model; ``w`` is (n,) or (n, C)."""
     part = model.partition
     dev = model.X.device
     members = torch.as_tensor(np.maximum(part.idx, 0), device=dev)
     mmask = torch.as_tensor(part.mask, device=dev)
-    wm = torch.where(mmask, w[members], 0.0)[..., None]
+    if w.dim() == 1:
+        w = w[:, None]
+    wm = torch.where(mmask[..., None], w[members], 0.0)
     return model.X[members], wm
 
 
@@ -132,23 +168,142 @@ def decision_early(model: DCSVMModel, Xq,
     part = model.partition
     if part is None:
         raise ValueError("early prediction requires a partitioned model")
-    Xq = torch.as_tensor(Xq, device=model.X.device).to(model.X.dtype)
-    if use_kernels is None:
-        use_kernels = model.config.use_kernels
-    use_kernels = resolve_use_kernels(use_kernels, Xq.device)
-    kern = model.config.kernel
+    Xq = _query(model, Xq)
     Xm, wm = _early_blocks(model, model.weights)
     cap = early_capacity(Xq.shape[0], part.k)
-    cid, _ = assign_points(kern, part.model, Xq, use_kernels=use_kernels)
-    return bucketed_cluster_scores(kern, Xq, cid, Xm, wm, cap,
-                                   use_kernels=use_kernels)[:, 0]
+    return _early_program(model.config.kernel, Xq, part.model, Xm, wm, cap,
+                          use_kernels=_use_kernels(model, use_kernels))[:, 0]
 
 
 def predict_early(model: DCSVMModel, Xq) -> torch.Tensor:
     return torch.sign(decision_early(model, Xq))
 
 
+def decision_bcm(model: DCSVMModel, Xq, noise: float = 1e-2,
+                 max_sv_per_cluster: int = 512) -> torch.Tensor:
+    """Bayesian Committee Machine combination of the k local models (the
+    paper's Table-1 baseline): each cluster's local decision f_c(x),
+    weighted by the inverse GP predictive variance on (a subsample of) its
+    support vectors."""
+    W = model.weights[:, None]
+    active = model.weights.cpu().numpy() != 0
+    return _bcm_scores(model, Xq, W, active, noise, max_sv_per_cluster)[:, 0]
+
+
+def _bcm_scores(model, Xq, W: torch.Tensor, active: np.ndarray, noise: float,
+                max_sv_per_cluster: int) -> torch.Tensor:
+    """Shared BCM combination: W is (n, C) decision weights, ``active``
+    marks the support vectors eligible per cluster.  The GP predictive
+    variance is label-independent, so one variance per cluster weights all
+    C outputs.  The solves run in float64, as the reference's do."""
+    part = model.partition
+    if part is None:
+        raise ValueError("BCM prediction requires a partitioned model")
+    kern = model.config.kernel
+    use = _use_kernels(model, None)
+    Xq = _query(model, Xq)
+    nq = Xq.shape[0]
+    f64 = dict(dtype=torch.float64, device=Xq.device)
+    num = torch.zeros((nq, W.shape[1]), **f64)
+    den = torch.zeros((nq, 1), **f64) + 1e-12
+    diag = kern.diag(Xq).double()
+    for c in range(part.k):
+        members = part.idx[c][part.mask[c]]
+        sv = members[active[members]]
+        if len(sv) == 0:
+            continue
+        if len(sv) > max_sv_per_cluster:
+            sv = sv[:: len(sv) // max_sv_per_cluster + 1]
+        svt = torch.as_tensor(sv, device=Xq.device)
+        Xs = model.X[svt]
+        Kss = (gram(kern, Xs, Xs, use_kernels=use).double()
+               + noise * torch.eye(len(sv), **f64))
+        Kqs = gram(kern, Xq, Xs, use_kernels=use).double()
+        f_c = Kqs @ W[svt].double()                            # (nq, C)
+        sol = torch.linalg.solve(Kss, Kqs.T)                   # (s, nq)
+        var = diag - torch.einsum("qs,sq->q", Kqs, sol)
+        var = torch.clamp(var, min=noise)[:, None]
+        num += f_c / var
+        den += 1.0 / var
+    return (num / den).to(torch.float32)
+
+
+def predict_bcm(model: DCSVMModel, Xq) -> torch.Tensor:
+    return torch.sign(decision_bcm(model, Xq))
+
+
 def accuracy(y_true, y_pred) -> float:
     y_true = torch.as_tensor(y_true)
     y_pred = torch.as_tensor(y_pred).to(y_true.device)
     return float((torch.sign(y_true) == torch.sign(y_pred)).float().mean())
+
+
+# ---------------------------------------------------------------------------
+# One-vs-all (multiclass) variants: per-class decision values + argmax.
+# ``model`` is a core.multiclass.MulticlassModel.
+# ---------------------------------------------------------------------------
+
+def _ova_weights(model) -> torch.Tensor:
+    """(n, n_classes) decision weights: column c is alpha_c * y_c."""
+    return (model.alpha * model.Y).T
+
+
+def decision_exact_ova(model, Xq, chunk: int = 4096,
+                       use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """(nq, n_classes) exact decision values over the SV union: one kernel
+    evaluation per (query, SV) pair serves every class."""
+    Xq = _query(model, Xq)
+    sv = torch.as_tensor(model.sv_union, device=model.X.device)
+    n_cls = model.Y.shape[0]
+    if len(sv) == 0:
+        return torch.zeros((Xq.shape[0], n_cls), dtype=Xq.dtype,
+                           device=Xq.device)
+    return _decision_scan(model.config.kernel, Xq, model.X[sv],
+                          _ova_weights(model)[sv], chunk,
+                          use_kernels=_use_kernels(model, use_kernels))
+
+
+def decision_early_ova(model, Xq,
+                       use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """Eq.-11 early prediction for one-vs-all: each query is routed once
+    and all classes score it against the same cluster block."""
+    part = model.partition
+    if part is None:
+        raise ValueError("early prediction requires a partitioned model")
+    Xq = _query(model, Xq)
+    Xm, wm = _early_blocks(model, _ova_weights(model))
+    cap = early_capacity(Xq.shape[0], part.k)
+    return _early_program(model.config.kernel, Xq, part.model, Xm, wm, cap,
+                          use_kernels=_use_kernels(model, use_kernels))
+
+
+def decision_bcm_ova(model, Xq, noise: float = 1e-2,
+                     max_sv_per_cluster: int = 512) -> torch.Tensor:
+    """BCM combination for one-vs-all: one variance weighting serves all
+    classes."""
+    active = (model.alpha > 0).any(dim=0).cpu().numpy()
+    return _bcm_scores(model, Xq, _ova_weights(model), active, noise,
+                       max_sv_per_cluster)
+
+
+def _argmax_classes(model, scores: torch.Tensor) -> torch.Tensor:
+    classes = torch.as_tensor(model.classes, device=scores.device)
+    return classes[torch.argmax(scores, dim=1)]
+
+
+def predict_exact_ova(model, Xq) -> torch.Tensor:
+    return _argmax_classes(model, decision_exact_ova(model, Xq))
+
+
+def predict_early_ova(model, Xq) -> torch.Tensor:
+    return _argmax_classes(model, decision_early_ova(model, Xq))
+
+
+def predict_bcm_ova(model, Xq) -> torch.Tensor:
+    return _argmax_classes(model, decision_bcm_ova(model, Xq))
+
+
+def accuracy_multiclass(y_true, y_pred) -> float:
+    y_true = torch.as_tensor(y_true)
+    y_pred = torch.as_tensor(y_pred).to(y_true.device)
+    return float((y_true == y_pred).double().mean())

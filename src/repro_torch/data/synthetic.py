@@ -28,6 +28,20 @@ def gaussian_mixture(rng: np.random.Generator, n: int, d: int = 10,
     return np.clip(X, 0.0, 1.0).astype(np.float32), y.astype(np.float32)
 
 
+def gaussian_mixture_multiclass(rng: np.random.Generator, n: int,
+                                n_classes: int = 3, d: int = 10,
+                                modes_per_class: int = 4, spread: float = 0.12
+                                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Multiclass analogue of ``gaussian_mixture``: class c is a mixture of
+    ``modes_per_class`` Gaussians.  Returns float32 X (n, d) and int32
+    labels 0..n_classes-1 (the one-vs-all workload)."""
+    centers = rng.uniform(size=(n_classes * modes_per_class, d))
+    mode = rng.integers(0, n_classes * modes_per_class, size=n)
+    X = centers[mode] + spread * rng.standard_normal((n, d), dtype=np.float32)
+    y = mode // modes_per_class
+    return np.clip(X, 0.0, 1.0).astype(np.float32), y.astype(np.int32)
+
+
 def covtype_like(rng: np.random.Generator, n: int
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """Stand-in for covtype: 54-dim, 16 modes per class, spread 0.12,

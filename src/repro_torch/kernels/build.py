@@ -24,7 +24,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("kermat", "kermatvec", "cd_update")
+SOURCES = ("kermat", "kermatvec", "cd_update", "kmeans_assign")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -41,6 +41,9 @@ SIGNATURES = {
                    _F, _P]),
     "cd_update": ("rt_cd_column_update",
                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _P]),
+    "kmeans_assign": ("rt_kmeans_assign",
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                       _P]),
 }
 
 _lock = threading.Lock()

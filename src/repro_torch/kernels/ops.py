@@ -10,14 +10,14 @@ nowhere else), so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
 LAUNCHES: Dict[str, int] = {"kermat": 0, "kernel_matvec": 0,
-                            "cd_column_update": 0}
+                            "cd_column_update": 0, "kmeans_assign": 0}
 
 _KIND = {"linear": 0, "poly": 1, "rbf": 2}
 _MAX_GRID_YZ = 65535
@@ -166,3 +166,47 @@ def cd_column_update(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
              _stream(X))
         LAUNCHES["cd_column_update"] += 1
     return out
+
+
+def _assign_layout(k: int) -> Tuple[int, int]:
+    """(columns a thread, padded k) of the ``kmeans_assign`` kernel: a block
+    covers 16 x group score columns a pass, group a power of two <= 16."""
+    group = 1
+    while group < 16 and 16 * group < k:
+        group *= 2
+    width = 16 * group
+    return group, -(-k // width) * width
+
+
+def kmeans_assign(X: torch.Tensor, Xm: torch.Tensor, W: torch.Tensor,
+                  s: torch.Tensor, gamma: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused RBF assignment: X (n, d), Xm (m, d), W (m, k), s (k,) ->
+    (assign (n,) int64, scores (n, k)), ``scores = -2 K(X, Xm) @ W + s``
+    and ``assign`` its row argmin (lowest index on ties).  The (n, m)
+    cross-kernel never reaches device memory.  K(x, x) is left out (the
+    caller adds it).  k is padded to the kernel's column layout with zero
+    W columns and s = +inf."""
+    if (X.dim() != 2 or Xm.dim() != 2 or W.dim() != 2 or s.dim() != 1
+            or X.shape[1] != Xm.shape[1] or W.shape[0] != Xm.shape[0]
+            or s.shape[0] != W.shape[1] or W.shape[1] == 0):
+        raise ValueError(f"kmeans_assign shapes {tuple(X.shape)}, "
+                         f"{tuple(Xm.shape)}, {tuple(W.shape)}, "
+                         f"{tuple(s.shape)}")
+    if _on_cpu(X, Xm, W, s):
+        return ref.kmeans_assign_ref(X, Xm, W, s, gamma=float(gamma))
+    _check_cuda(X, Xm, W, s)
+    n, d = X.shape
+    m, k = W.shape
+    group, kp = _assign_layout(k)
+    if kp > k:
+        W = torch.nn.functional.pad(W, (0, kp - k))
+        s = torch.nn.functional.pad(s, (0, kp - k), value=float("inf"))
+    scores = torch.empty((n, k), device=X.device, dtype=torch.float32)
+    assign = torch.empty(n, device=X.device, dtype=torch.int64)
+    if n:
+        _run("kmeans_assign", X.data_ptr(), Xm.data_ptr(), W.data_ptr(),
+             s.data_ptr(), scores.data_ptr(), assign.data_ptr(), n, m, d, k,
+             kp, group, float(gamma), _stream(X))
+        LAUNCHES["kmeans_assign"] += 1
+    return assign, scores

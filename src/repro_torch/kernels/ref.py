@@ -21,6 +21,15 @@ def kermat_ref(X, Y, *, kind="rbf", gamma=1.0, degree=3, coef0=0.0):
     return torch.exp(-gamma * torch.clamp(xx + yy - 2 * g, min=0.0))
 
 
+def kmeans_assign_ref(X, Xm, W, s, *, gamma=1.0):
+    """Fused assignment scores ``-2 K(X, Xm) @ W + s`` (RBF) and their row
+    argmin (lowest index on ties).  Returns (assign (n,) int64, scores
+    (n, k)); a center with ``s = +inf`` never wins."""
+    k = kermat_ref(X, Xm, kind="rbf", gamma=gamma)
+    scores = -2.0 * k @ W.float() + s.float()
+    return torch.argmin(scores, dim=-1), scores
+
+
 def cd_column_update_ref(X, y, Xb, w, *, kind="rbf", gamma=1.0, degree=3,
                          coef0=0.0):
     k = kermat_ref(X, Xb, kind=kind, gamma=gamma, degree=degree, coef0=coef0)

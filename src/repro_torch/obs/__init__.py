@@ -1,1 +1,1 @@
-"""Observability: named fit phases."""
+"""Observability: named fit phases and serving metrics."""

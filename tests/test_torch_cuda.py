@@ -95,3 +95,32 @@ def test_cuda_batched_kernels_match_plain_versions(cuda_device):
                                      **_rkw(kern)),
             rtol=2e-4, atol=2e-4)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_assign_matches_plain_version(cuda_device):
+    """The fused assignment at a non-aligned shape (n = 1000, m = 333,
+    d = 54, k = 7) with one empty centre (zero W column, s = +inf): scores
+    to the reference's 1e-4, assignments equal outside near-ties, and the
+    empty centre never chosen.  Also k = 300 (two column passes)."""
+    rng = np.random.default_rng(2)
+    X = torch.tensor(rng.uniform(size=(1000, 54)), dtype=torch.float32,
+                     device=cuda_device)
+    Xm = X[rng.choice(1000, 333, replace=False)].contiguous()
+    for k, empty in ((7, 3), (300, 299)):
+        lab = torch.tensor(rng.integers(0, k - 1, 333), device=cuda_device)
+        lab[lab >= empty] += 1                   # centre ``empty`` gets none
+        H = torch.nn.functional.one_hot(lab, k).float()
+        W = (H / H.sum(0).clamp(min=1.0)).contiguous()
+        Kmm = ref.kermat_ref(Xm, Xm, kind="rbf", gamma=0.05)
+        s = torch.einsum("mk,mn,nk->k", W, Kmm, W)
+        s[empty] = torch.inf
+        got_a, got_s = ops.kmeans_assign(X, Xm, W, s.contiguous(), 0.05)
+        want_a, want_s = ref.kmeans_assign_ref(X, Xm, W, s, gamma=0.05)
+        torch.cuda.synchronize()
+        assert got_a.dtype == torch.int64 and got_s.shape == (1000, k)
+        torch.testing.assert_close(got_s, want_s, rtol=0, atol=1e-4)
+        top2 = torch.topk(want_s, 2, dim=1, largest=False).values
+        clear = (top2[:, 1] - top2[:, 0]) >= 2e-4
+        assert torch.equal(got_a[clear], want_a[clear])
+        assert not bool((got_a == empty).any())

@@ -15,6 +15,7 @@ import sys
 import numpy as np
 from repro_torch.core import DCSVMConfig, Kernel, fit, predict_exact, accuracy
 from repro_torch.data import gaussian_mixture
+import repro_torch.convert, repro_torch.launch.serve_svm, repro_torch.launch.train_svm
 X, y = gaussian_mixture(np.random.default_rng(0), 200, d=4, modes_per_class=2)
 cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=4.0), C=2.0, levels=1, m=50)
 model = fit(cfg, X, y, device="cpu")
@@ -83,4 +84,6 @@ def test_wrapper_on_a_cuda_request_raises_without_a_built_kernel(
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.cd_column_update(X, torch.ones(16), X[:4], torch.ones(4),
                              Kernel("rbf"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.kmeans_assign(X, X[:4], torch.ones(4, 2), torch.ones(2), 1.0)
     assert ops.LAUNCHES == before

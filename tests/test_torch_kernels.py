@@ -3,8 +3,8 @@
 The reference runs its Pallas kernels in interpret mode (as
 tests/test_kernels_pallas.py does); the port's wrappers run their plain
 versions on the CPU.  Tolerances are the reference's own Pallas-vs-oracle
-ones: kernel_matrix 2e-5, kernel_matvec 2e-4, cd_column_update 2e-4.  The
-CUDA kernels themselves are compared with their plain versions by
+ones: kernel_matrix 2e-5, kernel_matvec 2e-4, cd_column_update 2e-4,
+kmeans_assign 1e-4 on its scores.  The CUDA kernels themselves are compared with their plain versions by
 tests/test_torch_cuda.py (and by chip_smoke.py) on a machine with a GPU.
 """
 import numpy as np
@@ -154,5 +154,45 @@ def test_wrappers_check_their_inputs():
         ops.kernel_matvec(X, Y, torch.ones(4), kern)
     with pytest.raises(ValueError):
         ops.cd_column_update(X, torch.ones(8), Y, torch.ones(4), kern)
+    with pytest.raises(ValueError):
+        ops.kmeans_assign(X, Y, torch.ones(4, 2), torch.ones(2), 1.0)
     with pytest.raises(NotImplementedError):
         ops.kernel_matrix(X, Y, kern, compute_dtype="bfloat16")
+
+
+def _assign_inputs(n, m, k, d, seed):
+    """Points, a sample, one-hot-normalised centre weights and their
+    self-terms (the shape of a k-means model), numpy float32."""
+    X, = _data(seed, (n, d))
+    rng = np.random.default_rng(seed + 1)
+    Xm = X[rng.choice(n, m, replace=False)]
+    H = np.eye(k, dtype=np.float32)[rng.integers(0, k, m)]
+    W = (H / np.maximum(H.sum(0), 1.0)).astype(np.float32)
+    Kmm = np.asarray(jops.kernel_matrix(Xm, Xm, JKernel("rbf", gamma=4.0)))
+    s = np.einsum("mk,mn,nk->k", W, Kmm, W).astype(np.float32)
+    return X, Xm, W, s
+
+
+@pytest.mark.parametrize("n,m,k,d", [(256, 64, 4, 8), (300, 128, 16, 32),
+                                     (64, 32, 3, 5), (130, 70, 20, 54)])
+def test_kmeans_assign_matches_reference(n, m, k, d):
+    """The port's wrapper (plain version on the CPU) and its ``ref`` against
+    the reference's Pallas kernel in interpret mode: scores to the
+    reference's 1e-4, the argmin equal."""
+    X, Xm, W, s = _assign_inputs(n, m, k, d, n + k)
+    ja, js = jops.kmeans_assign(X, Xm, W, s, gamma=4.0, bm=64)
+    for a, sc in (ops.kmeans_assign(*_t(X, Xm, W, s), 4.0),
+                  ref.kmeans_assign_ref(*_t(X, Xm, W, s), gamma=4.0)):
+        assert a.dtype == torch.int64 and sc.shape == (n, k)
+        np.testing.assert_allclose(sc.numpy(), np.asarray(js), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+
+
+@pytest.mark.parametrize("k,group,kp", [(1, 1, 16), (4, 1, 16), (16, 1, 16),
+                                        (17, 2, 32), (100, 8, 128),
+                                        (256, 16, 256), (300, 16, 512)])
+def test_kmeans_assign_column_layout(k, group, kp):
+    """k is padded to the kernel's column layout (16 columns a thread
+    group), never to the TPU's 128 lanes."""
+    assert ops._assign_layout(k) == (group, kp)

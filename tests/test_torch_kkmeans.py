@@ -101,3 +101,49 @@ def test_partition_gather_scatter_match_reference():
     g = tp.gather(torch.from_numpy(A))
     np.testing.assert_array_equal(g.numpy(), np.asarray(jp.gather(A)))
     np.testing.assert_array_equal(tp.scatter(g, 43).numpy(), A)
+
+
+def test_assign_points_masks_empty_centers_fused_route():
+    """The fused ``kmeans_assign`` route (``use_kernels=True``, RBF) keeps
+    the +inf of an empty centre inside the kernel's own argmin: the
+    centre's finite self-term would otherwise score it s_c and capture
+    points.  Same assignment and distances as the reference's gram route."""
+    X = _points(2, n=50, d=3)
+    W = np.zeros((10, 3), np.float32)
+    W[:5, 0] = 0.2
+    W[5:, 2] = 0.2                      # center 1 is empty
+    Xm = X[:10]
+    s = np.array([0.5, -5.0, 0.5], np.float32)   # the empty one scores lowest
+    ja, jd = JK.assign_points(JKernel("rbf", gamma=2.0),
+                              JK.KKMeansModel(Xm, W, s), X, use_pallas=True)
+    ta, td = K.assign_points(Kernel("rbf", gamma=2.0),
+                             K.KKMeansModel(*map(torch.from_numpy, (Xm, W, s))),
+                             torch.from_numpy(X), use_kernels=True)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    assert not (ta.numpy() == 1).any()
+    assert np.isinf(td.numpy()[:, 1]).all()
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-5)
+    np.testing.assert_array_equal(
+        K.route(Kernel("rbf", gamma=2.0),
+                K.KKMeansModel(*map(torch.from_numpy, (Xm, W, s))),
+                torch.from_numpy(X)).numpy(),
+        np.asarray(JK.route(JKernel("rbf", gamma=2.0),
+                            JK.KKMeansModel(Xm, W, s), X)))
+
+
+def test_assign_points_fused_route_counts_one_launch(monkeypatch):
+    """With ``use_kernels`` and RBF the assignment goes through
+    ``ops.kmeans_assign`` (and not ``kermat``); other kernel kinds keep the
+    gram route."""
+    from repro_torch.kernels import ops
+    calls = []
+    real = ops.kmeans_assign
+    monkeypatch.setattr(ops, "kmeans_assign",
+                        lambda *a: calls.append(1) or real(*a))
+    X = torch.from_numpy(_points(4, n=40, d=3))
+    model = K.KKMeansModel(X[:8], torch.full((8, 2), 0.125),
+                           torch.zeros(2))
+    K.assign_points(Kernel("rbf", gamma=1.0), model, X, use_kernels=True)
+    K.assign_points(Kernel("poly", gamma=1.0), model, X, use_kernels=True)
+    K.assign_points(Kernel("rbf", gamma=1.0), model, X, use_kernels=False)
+    assert calls == [1]
