@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one GPU and the CUDA
 toolkit.  It builds the hand-written kernels from src/repro_torch/kernels/
-csrc/ with nvcc (into build/repro_torch_kernels/) and runs six phases:
+csrc/ with nvcc (into build/repro_torch_kernels/) and runs seven phases:
 
 1. environment: card, power limit, versions, kernel build time; TF32 off;
 2. each kernel against its plain PyTorch version on the card, at the main
@@ -31,7 +31,22 @@ csrc/ with nvcc (into build/repro_torch_kernels/) and runs six phases:
    over the serving path;
 6. the solver loops' cost per step at the main path's shapes: wall time
    without the profiler, device time from torch.profiler, and their ratio,
-   the device's busy share.
+   the device's busy share;
+7. dense-LM serving (qwen1.5-0.5b at full width, bf16, random weights
+   from seed 0): (a) the flash_attention kernel against its plain version
+   (flash_attention_ref) on the card, causal, at each dense config's
+   attention shape (B = 8, S = 2048) and, for qwen1.5's, at a ragged
+   length and with a query offset, each in bfloat16 (within one bf16 ulp
+   of the plain output, elementwise) and float32 (within 2e-5), with its
+   bound and scaled_dot_product_attention's time as a yardstick (the
+   kernels line's flash_attention row comes from here); (b) the main
+   path: prefill of 8 x 2048 tokens through the kernel, then 31 greedy
+   decode steps, with the launch count of every kernel over each phase;
+   the same prefill through the plain attention held to the kernel path
+   on the last-position logits and every layer's prompt K/V, and two
+   wrong attentions (no causal mask; the mask one position off) that the
+   same comparison must refuse; a profile of the prefill; (c) the port's
+   serve CLI at its defaults (batch 4, prompt 32, gen 16).
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last line is {"ok": true, "device": {...}}.
@@ -55,7 +70,9 @@ ACC_FLOOR = 0.75                        # least exact and early test accuracy
 EARLY_CHECK_N = 2048                    # queries in the early kernel-vs-plain check
 EARLY_TOL = 2e-5                        # of 1 + sum_j K(x, x_j) |beta_j|
 PEAK_F32_FLOPS = 67e12                  # H100 SXM, f32 without tensor cores
+PEAK_BF16_FLOPS = 989e12                # H100 SXM, dense bf16 tensor cores
 PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
+SVM_KERNELS = ("kermat", "kernel_matvec", "cd_column_update", "kmeans_assign")
 SOURCES = {"kermat": ("src/repro_torch/kernels/csrc/kermat.cu",
                       "src/repro/kernels/kermat.py:75"),
            "kernel_matvec": ("src/repro_torch/kernels/csrc/kermatvec.cu",
@@ -63,13 +80,30 @@ SOURCES = {"kermat": ("src/repro_torch/kernels/csrc/kermat.cu",
            "cd_column_update": ("src/repro_torch/kernels/csrc/cd_update.cu",
                                 "src/repro/kernels/cd_update.py:78"),
            "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
-                             "src/repro/kernels/kmeans_assign.py:58")}
+                             "src/repro/kernels/kmeans_assign.py:58"),
+           "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:83")}
 ASSIGN_TOL = 1e-4                       # kmeans_assign scores (absolute)
 ASSIGN_TIE = 2e-4                       # gap below which an argmin may differ
 SERVE_BUCKET = 4096                     # query rows a serving call
 SERVE_LOOP = (50, 256)                  # the serve CLI's request loop
 SERVE_STRATEGIES = ("exact", "early", "bcm")
 BCM_CHECK_N = 4 * SERVE_BUCKET          # queries of the every-SV bcm check
+LM_ARCH = "qwen1.5-0.5b"                # phase 7's model, full width
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32   # 31 decode steps after prefill
+# (arch, Hq, Hkv, hd) of the dense configs' attention
+LM_ATTN = (("qwen1.5-0.5b", 16, 16, 64), ("qwen3-8b", 32, 8, 128),
+           ("yi-6b", 32, 4, 128), ("gemma-2b", 8, 1, 256))
+FLASH_F32_TOL = 2e-5    # absolute, float32 (tests/test_flash_attention.py)
+# bfloat16, elementwise: both sides round one f32 result to bf16, so they
+# may differ by one bf16 ulp (at most 2^-7 |o|) plus the f32 difference
+FLASH_BF16_ULP, FLASH_BF16_ATOL = 2.0 ** -7, 1e-4
+LM_LOGIT_TOL = 5e-2     # kernel vs plain prefill logits, of max |plain logit|
+LM_KV_TOL = 5e-2        # kernel vs plain prompt K/V, of max |plain K/V|
+# wrong attentions the comparison must refuse: no causal mask, and each
+# query missing its own key (the mask one position off)
+LM_CONTROLS = (("non-causal", {"causal": False}),
+               ("mask off by one", {"q_offset": -1}))
 
 
 def log(*a):
@@ -413,7 +447,7 @@ def phase_main(torch, Xtr, ytr, Xte, yte, cfg):
                                  f"{EARLY_TOL}")
     if min(acc_exact, acc_early) < ACC_FLOOR:
         raise AssertionError(f"accuracy too low: {acc_exact}, {acc_early}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in SVM_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     if launches["kmeans_assign"] < cfg.levels + 1:
@@ -653,6 +687,255 @@ def phase_loops(torch, Xtr, ytr, cfg):
         f"{100 * busy / wall:.1f}% (cd_column_update {cd:.4f} ms/iter)")
 
 
+def flash_case(torch, B, S, Hq, Hkv, hd, dtype, q_offset=0):
+    """The flash kernel against its plain version on one causal shape, with
+    its bound and the time of scaled_dot_product_attention (and the backend
+    it picked) on the same inputs."""
+    from torch.nn.attention import SDPBackend
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    Sq = S - q_offset
+
+    def draw(*shape):
+        return torch.randn(*shape, device=DEV, generator=gen).to(dtype)
+
+    q, k, v = draw(B, Sq, Hq, hd), draw(B, S, Hkv, hd), draw(B, S, Hkv, hd)
+
+    def run():
+        return ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, causal=True,
+                                       q_offset=q_offset)
+
+    got, want = run().float(), plain().float()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    if dtype == torch.bfloat16:
+        ratio = float((diff / (FLASH_BF16_ULP * want.abs()
+                               + FLASH_BF16_ATOL)).max())
+        tol_text = f"|err| <= 2^-7 |plain| + {FLASH_BF16_ATOL:.0e}"
+    else:
+        ratio = err / FLASH_F32_TOL
+        tol_text = f"{FLASH_F32_TOL:.0e}"
+    del got, want, diff
+    torch.cuda.synchronize()
+    ms = cuda_ms(torch, run, 5)
+    plain_ms = cuda_ms(torch, plain, 3)
+    # SDPA's causal mask is aligned to the top left; with a query offset
+    # it computes another function, so it is timed on square shapes only
+    lib_ms, backend = None, None
+    if q_offset == 0:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def lib():
+            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv)
+        lib_ms = cuda_ms(torch, lib, 5)
+        # the backend SDPA's dispatcher picks for these arguments
+        backend = SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv)).name
+    # each query row attends keys 0..q_offset + i (all S when past them)
+    pairs = sum(min(S, q_offset + i + 1) for i in range(Sq))
+    flops = 4 * B * Hq * hd * pairs
+    esize = q.element_size()
+    nbytes = esize * hd * B * (2 * Sq * Hq + 2 * S * Hkv)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"kernel flash_attention B={B} S={S} q_offset={q_offset} Hq={Hq} "
+        f"Hkv={Hkv} hd={hd} {dtype}: max_abs_err={err:.3e} (tolerance "
+        f"{tol_text}; worst share of it {ratio:.3f}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}, {flops / 1e9:.1f} GFLOP at "
+        f"{peak / 1e12:.0f} TFLOP/s) kernel_TFLOP/s={flops / ms / 1e9:.2f} "
+        f"library_ms(scaled_dot_product_attention)="
+        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} backend={backend}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version: max_abs_err {err}, {ratio} of "
+                             f"{tol_text}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, tol_share=ratio, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms, backend=backend)
+
+
+def phase_lm(torch):
+    """Phase 7: dense-LM serving on the card (qwen1.5-0.5b, full width,
+    bf16): (a) the flash kernel at every dense config's attention shape,
+    (b) prefill + greedy decode with every launch counted, held to the
+    plain attention path, which refuses two wrong attentions, (c) the
+    serve CLI at its defaults.  Returns the
+    flash kernel's row and the launch counts of (b)."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as LY
+    from repro_torch.models.param import leaves
+
+    bf16 = torch.bfloat16
+    f32 = torch.float32
+    rows = {}
+    for arch, Hq, Hkv, hd in LM_ATTN:
+        for dtype in (bf16, f32):
+            rows[arch, dtype] = flash_case(torch, LM_BATCH, LM_PROMPT, Hq,
+                                           Hkv, hd, dtype)
+    _, Hq, Hkv, hd = LM_ATTN[0]
+    # 2000 = a length that is no tile multiple; queries at 1024..2047
+    for dtype in (bf16, f32):
+        for S, off in ((LM_PROMPT - 48, 0), (LM_PROMPT, LM_PROMPT // 2)):
+            flash_case(torch, LM_BATCH, S, Hq, Hkv, hd, dtype, q_offset=off)
+
+    cfg = get_config(LM_ARCH)
+    S_max = LM_PROMPT + LM_GEN
+    params = serve.init_params(cfg, SEED, DEV)
+    prompts = serve.make_prompts(cfg, LM_BATCH, LM_PROMPT, SEED + 1, DEV)
+    n_params = sum(p.numel() for p in leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tok, logits, cache = serve.prefill(cfg, params, prompts, S_max)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    launches_prefill = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    gen = serve.decode(cfg, params, cache, tok, LM_PROMPT, LM_GEN - 1)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches_decode = {k: launches[k] - launches_prefill[k] for k in launches}
+    steps = LM_GEN - 1
+    log(f"lm {LM_ARCH}: {n_params / 1e9:.3f}B params bf16, prefill "
+        f"{LM_BATCH}x{LM_PROMPT}: {t_prefill * 1e3:.2f} ms (first call); "
+        f"decode {steps} steps: {t_decode * 1e3 / steps:.3f} ms/step, "
+        f"{LM_BATCH * steps / t_decode:.1f} tok/s; peak_mem_gib={peak:.2f}")
+    log("lm kernels prefill " + json.dumps(launches_prefill) + " decode "
+        + json.dumps(launches_decode))
+    for r in range(2):
+        log(f"lm generated ids row {r}: {gen[r, :16].tolist()}")
+    if gen.shape != (LM_BATCH, LM_GEN) or not bool(
+            ((gen >= 0) & (gen < cfg.vocab)).all()):
+        raise AssertionError(f"generated ids malformed: {gen.shape}")
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("non-finite prefill logits")
+    if (launches_prefill["flash_attention"] != cfg.n_layers
+            or launches_decode["flash_attention"] != 0):
+        raise AssertionError(f"flash_attention launches: prefill "
+                             f"{launches_prefill}, decode {launches_decode}; "
+                             f"expected {cfg.n_layers} and 0")
+
+    # the same prefill through the plain attention, held to the kernel path
+    # on the last-position logits and on every layer's prompt K/V (layer
+    # l's K/V carry layers 0..l-1's attention at every position); then
+    # wrong attentions through the plain path, which the same comparison
+    # must refuse
+    def plain_prefill(**wrong):
+        orig = LY.chunked_attention
+        LY.chunked_attention = (lambda q, k, v, **kw:
+                                orig(q, k, v, **{**kw, **wrong}))
+        try:
+            return serve.prefill(cfg, params, prompts, S_max,
+                                 use_kernels=False)[1:]
+        finally:
+            LY.chunked_attention = orig
+
+    plain_logits, plain_cache = plain_prefill()
+    want = plain_logits[:, -1].float()
+    scale = float(want.abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > LM_LOGIT_TOL * scale
+
+    def compare(name, got_logits, got_cache):
+        got = got_logits[:, -1].float()
+        err = float((got - want).abs().max()) / scale
+        num = den = 0.0
+        for slot, kv in plain_cache["stack"].items():
+            for key, ref_t in kv.items():
+                for layer in range(ref_t.shape[0]):
+                    x = got_cache["stack"][slot][key][layer, :, :LM_PROMPT]
+                    y = ref_t[layer, :, :LM_PROMPT].float()
+                    num = max(num, float((x.float() - y).abs().max()))
+                    den = max(den, float(y.abs().max()))
+        kv_err = num / den
+        differ = int((got.argmax(-1) != want.argmax(-1))[clear].sum())
+        ok = err <= LM_LOGIT_TOL and kv_err <= LM_KV_TOL and not differ
+        log(f"lm prefill, {name} vs plain attention: logits max_abs_err / "
+            f"max|plain| = {err:.3e} (tolerance {LM_LOGIT_TOL:.0e}, "
+            f"max|plain| {scale:.3f}); prompt K/V max_abs_err / max|plain| "
+            f"= {kv_err:.3e} (tolerance {LM_KV_TOL:.0e}, max|plain| "
+            f"{den:.3f}); first tokens differing {differ} of "
+            f"{int(clear.sum())} rows with a top-2 gap above the logit "
+            f"tolerance; all rows equal: "
+            f"{bool((got.argmax(-1) == want.argmax(-1)).all())}; within "
+            f"tolerance: {ok}")
+        return ok
+
+    agree = compare("flash kernel path", logits, cache)
+    del cache
+    accepted = []
+    for name, wrong in LM_CONTROLS:
+        wrong_logits, wrong_cache = plain_prefill(**wrong)
+        if compare(f"control ({name}, plain path)", wrong_logits,
+                   wrong_cache):
+            accepted.append(name)
+        del wrong_logits, wrong_cache
+    if not agree:
+        raise AssertionError("kernel and plain prefill disagree")
+    if accepted:
+        raise AssertionError(f"the kernel-vs-plain comparison accepts a "
+                             f"wrong attention: {accepted}")
+    del plain_logits, plain_cache
+    torch.cuda.empty_cache()
+
+    # steady prefill times, kernel and plain attention in turns, and a
+    # profile of one kernel prefill
+    def prefill_with(use):
+        return lambda: serve.prefill(cfg, params, prompts, S_max,
+                                     use_kernels=use)
+    times = {True: [], False: []}
+    for use in (False, True, True, False):
+        times[use].append(wall_ms(torch, prefill_with(use)))
+    dev = device_ms(torch, prefill_with(True))
+    busy = sum(dev.values())
+    flash = sum(v for key, v in dev.items() if "flash_attention" in key)
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+    log(f"lm prefill steady: kernel {min(times[True]):.2f} ms, plain "
+        f"attention {min(times[False]):.2f} ms (min of 2 each); profiled "
+        f"device time {busy:.2f} ms, flash_attention {flash:.2f} ms "
+        f"({100 * flash / busy:.1f}%); top: "
+        + "; ".join(f"{key[:60]} {v:.2f}" for key, v in top))
+    del params, prompts, logits
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"LM serve CLI failed:\n{out.stdout}\n"
+                             f"{out.stderr}")
+    lines = out.stdout.strip().splitlines()
+    log(f"lm serve CLI defaults ({time.perf_counter() - t0:.1f}s in all): "
+        + " | ".join(line.strip() for line in lines))
+    if not (lines[0].startswith("prefill:") and lines[1].startswith("decode:")
+            and len(lines) == 5):
+        raise AssertionError(f"LM serve CLI output malformed: {lines}")
+    row = dict(rows[LM_ARCH, bf16])
+    keys = ("max_abs_err", "tol_share", "ms", "plain_ms", "bound_ms",
+            "library_ms")
+    row["by_arch"] = {f"{arch} {str(dtype)[6:]}": {k: r[k] for k in keys}
+                      for (arch, dtype), r in rows.items()}
+    return row, launches_prefill, launches_decode
+
+
 def main() -> int:
     import torch
 
@@ -716,6 +999,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_loops(torch, Xtr, ytr, cfg)
     log(f"phase loops: {time.perf_counter() - t0:.2f}s")
+    del Xtr, ytr, Xte, yte
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows["flash_attention"], lm_prefill, lm_decode = phase_lm(torch)
+    launches["flash_attention"] = lm_prefill["flash_attention"]
+    log(f"phase lm serving: {time.perf_counter() - t0:.2f}s")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -725,8 +1014,13 @@ def main() -> int:
                "launches_serving": serving[name],
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-               "bound_by": r["bound_by"], "library_ms": None,
-               "matmul_only_ms": r["matmul_ms"]}
+               "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
+        if name in SVM_KERNELS:
+            row["matmul_only_ms"] = r["matmul_ms"]
+        else:
+            row.update(launches_decode=lm_decode[name],
+                       library=f"scaled_dot_product_attention ({r['backend']})",
+                       by_arch=r["by_arch"])
         if name == "kmeans_assign":
             rt = rows["kmeans_assign_routing"]
             row.update({f"routing_{key}": rt[key] for key in

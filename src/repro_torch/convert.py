@@ -10,10 +10,14 @@ trained on a TPU predicts the same here:
 
 ``from_jax_multiclass`` does the same for a reference ``MulticlassModel``,
 with "classes" and "Y" in place of "y" and "beta".
+
+``from_jax_lm`` carries a reference LM's parameter tree (nested dicts of
+``np.asarray`` leaves, bf16 leaves as ``ml_dtypes.bfloat16``) over to the
+port's tree, with the same paths, shapes and dtypes.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -22,6 +26,8 @@ from repro_torch.core.dcsvm import DCSVMConfig, DCSVMModel
 from repro_torch.core.kkmeans import KKMeansModel, Partition
 from repro_torch.core.multiclass import MulticlassModel
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import model as M
+from repro_torch.models.param import torch_dtype
 
 
 def from_jax_arrays(d: Dict[str, np.ndarray], cfg: DCSVMConfig,
@@ -65,3 +71,36 @@ def _partition(d: Dict[str, np.ndarray], t) -> Optional[Partition]:
         assign=np.asarray(d["assign"], np.int32), idx=idx,
         mask=np.asarray(d["mask"], bool), k=idx.shape[0], nc=idx.shape[1],
         model=KKMeansModel(Xm=t("Xm"), W=t("W"), s=t("s")))
+
+
+def _leaf_tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    a = np.array(a, copy=True, order="C")   # a writable copy
+    if a.dtype.name == "bfloat16":     # ml_dtypes.bfloat16: same bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def from_jax_lm(params_np: Dict[str, Any], cfg,
+                device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's LM parameters from a reference tree of numpy arrays.
+    Raises if a path is missing or extra, or a leaf's shape or dtype is not
+    the one ``build_decls_any(cfg)`` declares for ``cfg.param_dtype``."""
+    dev = resolve_device(device)
+    decls = M.build_decls_any(cfg)
+    want_dtype = torch_dtype(cfg.param_dtype)
+
+    def walk(d, a, path):
+        if isinstance(d, dict):
+            if not isinstance(a, dict) or set(a) != set(d):
+                got = sorted(a) if isinstance(a, dict) else type(a).__name__
+                raise ValueError(f"{path or 'params'}: keys {got}, expected "
+                                 f"{sorted(d)}")
+            return {k: walk(d[k], a[k], f"{path}/{k}") for k in sorted(d)}
+        t = _leaf_tensor(np.asarray(a), dev)
+        dt = torch_dtype(d.dtype) if d.dtype else want_dtype
+        if tuple(t.shape) != tuple(d.shape) or t.dtype != dt:
+            raise ValueError(f"{path}: {tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(d.shape)} {dt}")
+        return t
+
+    return walk(decls, params_np, "")

@@ -24,7 +24,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("kermat", "kermatvec", "cd_update", "kmeans_assign")
+SOURCES = ("kermat", "kermatvec", "cd_update", "kmeans_assign",
+           "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -44,6 +45,9 @@ SIGNATURES = {
     "kmeans_assign": ("rt_kmeans_assign",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                        _P]),
+    "flash_attention": ("rt_flash_attention",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
+                         _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _P]),
 }
 
 _lock = threading.Lock()

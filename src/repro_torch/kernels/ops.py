@@ -10,6 +10,7 @@ nowhere else), so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -17,11 +18,13 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES: Dict[str, int] = {"kermat": 0, "kernel_matvec": 0,
-                            "cd_column_update": 0, "kmeans_assign": 0}
+                            "cd_column_update": 0, "kmeans_assign": 0,
+                            "flash_attention": 0}
 
 _KIND = {"linear": 0, "poly": 1, "rbf": 2}
 _MAX_GRID_YZ = 65535
 MAX_CD_BLOCK = 256
+FLASH_HEAD_DIMS = (64, 128, 256)
 
 
 def reset_launches() -> None:
@@ -210,3 +213,48 @@ def kmeans_assign(X: torch.Tensor, Xm: torch.Tensor, W: torch.Tensor,
              kp, group, float(gamma), _stream(X))
         LAUNCHES["kmeans_assign"] += 1
     return assign, scores
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Softmax attention forward, the score matrix kept on chip.
+
+    q (B, Sq, Hq, hd) with k, v (B, Sk, Hkv, hd), Hq a multiple of Hkv
+    (query head h reads kv head h // (Hq // Hkv); nothing is repeated).
+    Scores are f32 times 1/sqrt(hd); under the causal mask query row i sits
+    at position ``q_offset + i``.  Returns a contiguous (B, Sq, Hq, hd)
+    tensor in q's dtype.  On CUDA: float32 or bfloat16, hd in {64, 128,
+    256}, a unit stride on the last axis."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if (k.shape[0] != B or k.shape[3] != hd or Hkv == 0 or Hq % Hkv
+            or Sk == 0 or q_offset < 0):
+        raise ValueError(f"flash_attention shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, q_offset {q_offset}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash_attention dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       q_offset=q_offset)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the flash_attention kernel takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernel takes hd in "
+                         f"{FLASH_HEAD_DIMS}, got {hd}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention takes a unit stride on the last axis")
+    if B * Hq > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention grid too large: B * Hq = {B * Hq}")
+    o = torch.empty((B, Sq, Hq, hd), device=q.device, dtype=q.dtype)
+    if B and Sq and Hq:
+        _run("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             o.data_ptr(), B, Sq, Sk, Hq, Hkv, hd, *q.stride()[:3],
+             *k.stride()[:3], *v.stride()[:3], int(causal), int(q_offset),
+             1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16), _stream(q))
+        LAUNCHES["flash_attention"] += 1
+    return o

@@ -7,6 +7,8 @@ batch dimensions broadcast like ``torch.matmul``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -39,3 +41,23 @@ def cd_column_update_ref(X, y, Xb, w, *, kind="rbf", gamma=1.0, degree=3,
 def kernel_matvec_ref(X, Z, v, *, kind="rbf", gamma=1.0, degree=3, coef0=0.0):
     k = kermat_ref(X, Z, kind=kind, gamma=gamma, degree=degree, coef0=coef0)
     return (k @ v.float()[..., None])[..., 0]
+
+
+def flash_attention_ref(q, k, v, *, causal=True, q_offset=0):
+    """Naive softmax attention in f32 (the oracle of ``flash_attention``).
+
+    q (B, Sq, Hq, hd) with k, v (B, Sk, Hkv, hd), query head h attending kv
+    head h // (Hq // Hkv).  Under the causal mask query row i sits at
+    position q_offset + i and masked scores are -1e30.  Returns q's shape
+    and dtype."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        mask = qpos[:, None] >= torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float()).reshape(B, Sq, Hq, hd)
+    return o.to(q.dtype)

@@ -1,9 +1,10 @@
-"""Named fit phases for the profiler.
+"""Named phases for the profiler.
 
 ``span("divide/level3/cluster")`` wraps a phase in
 ``torch.profiler.record_function`` with the same name the reference uses
 (``divide/level{l}/cluster``, ``divide/level{l}/solve``, ``conquer/refine``,
-``conquer/solve``), so a ``torch.profiler`` trace carries the labels.  It
+``conquer/solve``; the LM serve CLI's ``serve/prefill`` and
+``serve/decode``), so a ``torch.profiler`` trace carries the labels.  It
 costs next to nothing when no profiler runs.  While a ``SpanTimer`` is
 activated, each span also adds its host wall time to the timer's totals
 (the fit ends its phases with a device sync, so the time covers the

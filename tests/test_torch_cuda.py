@@ -7,7 +7,8 @@ also runs on a GPU machine without them:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances are the reference's Pallas-vs-oracle ones: kernel_matrix 2e-5,
-kernel_matvec and cd_column_update 2e-4; plain f32 with TF32 off.
+kernel_matvec and cd_column_update 2e-4, flash_attention 2e-5 in float32
+and 3e-2 for bfloat16 inputs; plain f32 with TF32 off.
 """
 import numpy as np
 import pytest
@@ -124,3 +125,65 @@ def test_cuda_kmeans_assign_matches_plain_version(cuda_device):
         clear = (top2[:, 1] - top2[:, 0]) >= 2e-4
         assert torch.equal(got_a[clear], want_a[clear])
         assert not bool((got_a == empty).any())
+
+
+# (B, S, Hq, Hkv, hd, dtype, q_offset): every head dim of the dense configs,
+# MHA / GQA / MQA, a length that is not a tile multiple and a query offset.
+FLASH_CASES = [(2, 200, 4, 4, 64, torch.float32, 0),
+               (2, 200, 4, 4, 64, torch.bfloat16, 0),
+               (1, 131, 8, 2, 128, torch.float32, 0),
+               (1, 131, 8, 2, 128, torch.bfloat16, 0),
+               (2, 77, 4, 1, 256, torch.float32, 0),
+               (2, 77, 4, 1, 256, torch.bfloat16, 0),
+               (1, 96, 4, 2, 128, torch.float32, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize(
+    "B,S,Hq,Hkv,hd,dtype,q_offset", FLASH_CASES,
+    ids=[f"{c[4]}-{c[2]}x{c[3]}-S{c[1]}-{str(c[5])[6:]}-off{c[6]}"
+         for c in FLASH_CASES])
+def test_cuda_flash_attention_matches_plain_version(cuda_device, causal, B, S,
+                                                    Hq, Hkv, hd, dtype,
+                                                    q_offset):
+    """The flash kernel against ``flash_attention_ref`` (f32 math) on the
+    model's (B, S, H, hd) layout: the reference's kernel-vs-oracle
+    tolerances, 2e-5 for float32 and 3e-2 for bfloat16 inputs
+    (tests/test_flash_attention.py).  The queries are the last S - q_offset
+    positions of an S-long key sequence."""
+    rng = np.random.default_rng(hd + S)
+    q = torch.tensor(rng.standard_normal((B, S - q_offset, Hq, hd)),
+                     dtype=dtype, device=cuda_device)
+    k, v = (torch.tensor(rng.standard_normal((B, S, Hkv, hd)), dtype=dtype,
+                         device=cuda_device) for _ in range(2))
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_strided_and_folded(cuda_device):
+    """Inputs that are views with strides of their own (q, k, v sliced out
+    of one fused projection), and the reference's folded (BH, S, hd)
+    layout given a head axis of 1."""
+    rng = np.random.default_rng(5)
+    B, S, H, hd = 2, 150, 4, 64
+    qkv = torch.tensor(rng.standard_normal((B, S, 3, H, hd)),
+                       dtype=torch.float32, device=cuda_device)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    torch.testing.assert_close(ops.flash_attention(q, k, v),
+                               ref.flash_attention_ref(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+    qf, kf, vf = (t.permute(0, 2, 1, 3).reshape(B * H, S, 1, hd)
+                  for t in (q, k, v))
+    torch.testing.assert_close(ops.flash_attention(qf, kf, vf, causal=False),
+                               ref.flash_attention_ref(qf, kf, vf,
+                                                       causal=False),
+                               rtol=2e-5, atol=2e-5)
+    torch.cuda.synchronize()

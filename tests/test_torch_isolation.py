@@ -16,10 +16,17 @@ import numpy as np
 from repro_torch.core import DCSVMConfig, Kernel, fit, predict_exact, accuracy
 from repro_torch.data import gaussian_mixture
 import repro_torch.convert, repro_torch.launch.serve_svm, repro_torch.launch.train_svm
+import repro_torch.configs, repro_torch.models.lm, repro_torch.launch.serve
+from repro_torch.launch import serve
 X, y = gaussian_mixture(np.random.default_rng(0), 200, d=4, modes_per_class=2)
 cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=4.0), C=2.0, levels=1, m=50)
 model = fit(cfg, X, y, device="cpu")
 assert accuracy(y, predict_exact(model, X)) > 0.8
+lm_cfg = repro_torch.configs.get_config("qwen1.5-0.5b", reduced=True)
+params = serve.init_params(lm_cfg, 0, "cpu")
+prompts = serve.make_prompts(lm_cfg, 2, 8, 1, "cpu")
+tok, logits, cache = serve.prefill(lm_cfg, params, prompts, 12)
+assert tok.shape == (2, 1) and logits.shape == (2, 1, lm_cfg.vocab)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 assert not bad, bad
@@ -59,6 +66,9 @@ def test_cuda_device_raises_without_a_gpu():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         fit(DCSVMConfig(), torch.zeros(8, 2), torch.ones(8))   # default: cuda
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--reduced"])                               # default: cuda
 
 
 def test_wrapper_on_a_cuda_request_raises_without_a_built_kernel(
@@ -86,4 +96,7 @@ def test_wrapper_on_a_cuda_request_raises_without_a_built_kernel(
                              Kernel("rbf"))
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.kmeans_assign(X, X[:4], torch.ones(4, 2), torch.ones(2), 1.0)
+    q = torch.rand(1, 8, 2, 64)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
     assert ops.LAUNCHES == before
