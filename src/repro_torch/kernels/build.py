@@ -54,15 +54,39 @@ _lock = threading.Lock()
 _loaded: Dict[str, object] = {}
 
 
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+    raise RuntimeError(f"{name} not found: the CUDA kernels are built on a "
                        "machine with the CUDA toolkit")
+
+
+def nvcc_path() -> str:
+    return _cuda_tool("nvcc")
+
+
+def sass_counts(name: str, opcodes=("HGMMA", "UTMALDG")) -> Dict[str, Dict[str, int]]:
+    """How many of each SASS opcode every kernel function of the built
+    ``csrc/<name>.cu`` holds, from ``cuobjdump -sass``: {function: {opcode:
+    count}}."""
+    out = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
+                          str(build_all()[name])], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn is not None:
+            for op in opcodes:
+                if f" {op}" in line:
+                    counts[fn][op] += 1
+    return counts
 
 
 def _digest(name: str) -> str:

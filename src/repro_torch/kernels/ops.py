@@ -69,8 +69,9 @@ def _check_cuda(*ts: torch.Tensor) -> None:
 def _run(name: str, *args) -> None:
     err = build.kernel_fn(name)(*args)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError {err}")
+        what = (f"CUresult {err - 10000} (a TMA tensor map was refused)"
+                if err >= 10000 else f"cudaError {err}")
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {what}")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -215,6 +216,41 @@ def kmeans_assign(X: torch.Tensor, Xm: torch.Tensor, W: torch.Tensor,
     return assign, scores
 
 
+def flash_tma_strides(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> Tuple[int, ...]:
+    """The bf16 kernel's input checks, which TMA sets: hd in {64, 128,
+    256}, a unit stride on the last axis, a 16-byte aligned base and
+    (batch, sequence, head) strides that are multiples of 8 elements (16
+    bytes) and below 2^39.  Returns the nine element strides (q, k, v;
+    batch, sequence, head each) that the kernel's tensor maps take: an axis
+    of size 1 is never stepped, so it gets the stride of a contiguous
+    tensor.  Raises ValueError on an input the kernel does not take."""
+    hd = q.shape[-1]
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernel takes hd in "
+                         f"{FLASH_HEAD_DIMS}, got {hd}")
+    strides = []
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError("flash_attention takes a unit stride on the last "
+                             "axis")
+        if t.data_ptr() % 16:
+            raise ValueError(f"the bf16 flash_attention kernel needs {name} "
+                             f"16-byte aligned (TMA), got address "
+                             f"{t.data_ptr():#x}")
+        B, S, H, _ = t.shape
+        dense = {0: S * H * hd, 1: H * hd, 2: hd}
+        for axis in (0, 1, 2):
+            st = t.stride(axis) if t.shape[axis] > 1 else dense[axis]
+            if st % 8 or not 0 < st < 2 ** 39:
+                raise ValueError(
+                    f"the bf16 flash_attention kernel needs {name}'s strides "
+                    f"to be positive multiples of 8 elements (16 bytes, for "
+                    f"TMA); axis {axis} has stride {t.stride(axis)}")
+            strides.append(st)
+    return tuple(strides)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Softmax attention forward, the score matrix kept on chip.
@@ -223,8 +259,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (query head h reads kv head h // (Hq // Hkv); nothing is repeated).
     Scores are f32 times 1/sqrt(hd); under the causal mask query row i sits
     at position ``q_offset + i``.  Returns a contiguous (B, Sq, Hq, hd)
-    tensor in q's dtype.  On CUDA: float32 or bfloat16, hd in {64, 128,
-    256}, a unit stride on the last axis."""
+    tensor in q's dtype.  On CUDA: float32 (CUDA cores) or bfloat16
+    (tensor cores, p rounded to bf16 before P.V; ``flash_tma_strides``
+    says which layouts it takes), hd in {64, 128, 256}, a unit stride on
+    the last axis."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -240,21 +278,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset)
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype == torch.bfloat16:
+        strides = flash_tma_strides(q, k, v)
+    elif q.dtype == torch.float32:
+        if hd not in FLASH_HEAD_DIMS:
+            raise ValueError(f"the flash_attention kernel takes hd in "
+                             f"{FLASH_HEAD_DIMS}, got {hd}")
+        if any(t.stride(-1) != 1 for t in (q, k, v)):
+            raise ValueError("flash_attention takes a unit stride on the "
+                             "last axis")
+        if B * Hq > _MAX_GRID_YZ:
+            raise ValueError(f"flash_attention grid too large: B * Hq = "
+                             f"{B * Hq}")
+        strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    else:
         raise TypeError(f"the flash_attention kernel takes float32 or "
                         f"bfloat16, got {q.dtype}")
-    if hd not in FLASH_HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes hd in "
-                         f"{FLASH_HEAD_DIMS}, got {hd}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention takes a unit stride on the last axis")
-    if B * Hq > _MAX_GRID_YZ:
-        raise ValueError(f"flash_attention grid too large: B * Hq = {B * Hq}")
     o = torch.empty((B, Sq, Hq, hd), device=q.device, dtype=q.dtype)
     if B and Sq and Hq:
         _run("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             o.data_ptr(), B, Sq, Sk, Hq, Hkv, hd, *q.stride()[:3],
-             *k.stride()[:3], *v.stride()[:3], int(causal), int(q_offset),
-             1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16), _stream(q))
+             o.data_ptr(), B, Sq, Sk, Hq, Hkv, hd, *strides, int(causal),
+             int(q_offset), 1.0 / math.sqrt(hd),
+             int(q.dtype == torch.bfloat16), _stream(q))
         LAUNCHES["flash_attention"] += 1
     return o

@@ -43,13 +43,9 @@ def kernel_matvec_ref(X, Z, v, *, kind="rbf", gamma=1.0, degree=3, coef0=0.0):
     return (k @ v.float()[..., None])[..., 0]
 
 
-def flash_attention_ref(q, k, v, *, causal=True, q_offset=0):
-    """Naive softmax attention in f32 (the oracle of ``flash_attention``).
-
-    q (B, Sq, Hq, hd) with k, v (B, Sk, Hkv, hd), query head h attending kv
-    head h // (Hq // Hkv).  Under the causal mask query row i sits at
-    position q_offset + i and masked scores are -1e30.  Returns q's shape
-    and dtype."""
+def _attention_probs(q, k, *, causal, q_offset):
+    """softmax(q k^T / sqrt(hd)) in f32, (B, Hkv, G, Sq, Sk), query head
+    h = kv head * G + g, the causal fill -1e30."""
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, Hkv, Hq // Hkv, hd)
@@ -58,6 +54,81 @@ def flash_attention_ref(q, k, v, *, causal=True, q_offset=0):
         qpos = q_offset + torch.arange(Sq, device=q.device)
         mask = qpos[:, None] >= torch.arange(Sk, device=q.device)[None, :]
         s = torch.where(mask, s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float()).reshape(B, Sq, Hq, hd)
-    return o.to(q.dtype)
+    return torch.softmax(s, dim=-1)
+
+
+def _attend(p, v):
+    B, Hkv, G, Sq, _ = p.shape
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(B, Sq, Hkv * G, v.shape[-1])
+
+
+def flash_attention_ref(q, k, v, *, causal=True, q_offset=0):
+    """Naive softmax attention in f32 (the oracle of ``flash_attention``).
+
+    q (B, Sq, Hq, hd) with k, v (B, Sk, Hkv, hd), query head h attending kv
+    head h // (Hq // Hkv).  Under the causal mask query row i sits at
+    position q_offset + i and masked scores are -1e30.  Returns q's shape
+    and dtype."""
+    p = _attention_probs(q, k, causal=causal, q_offset=q_offset)
+    return _attend(p, v).to(q.dtype)
+
+
+# The bf16 flash kernel rounds p to bf16 before P.V (as the model's plain
+# attention does) and its output to bf16.  With u = 2^-8, bf16's unit
+# roundoff, its distance from the f32 plain output o is bounded elementwise
+# by u |o| for the output's rounding, doubled for the f32 sums that differ
+# in order, plus u (softmax(s) . |v|) for p's rounding, plus an absolute
+# 1e-4 for outputs near 0.  l sums the f32 p, so p's rounding adds nothing
+# to it.
+FLASH_BF16_REL, FLASH_BF16_P, FLASH_BF16_ATOL = 2.0 ** -7, 2.0 ** -8, 1e-4
+# the bf16 kernel's key tile by head dim (csrc/flash_attention.cu)
+FLASH_BF16_BK = {64: 128, 128: 128, 256: 64}
+
+
+def flash_bf16_bound(q, k, v, *, causal=True, q_offset=0):
+    """(o, sv): the f32 plain output on these inputs and softmax(s) . |v|,
+    the two sides of the bf16 kernel's bound (``flash_bf16_share``)."""
+    p = _attention_probs(q, k, causal=causal, q_offset=q_offset)
+    return _attend(p, v), _attend(p, v.float().abs())
+
+
+def flash_bf16_share(got, want, sv):
+    """Worst share, over the elements, of the bound |got - want| <=
+    2^-7 |want| + 2^-8 sv + 1e-4 (sv from ``flash_bf16_bound``): at most 1
+    when ``got`` is within it."""
+    tol = FLASH_BF16_REL * want.float().abs() + FLASH_BF16_P * sv + FLASH_BF16_ATOL
+    return float(((got.float() - want.float()).abs() / tol).max())
+
+
+def flash_attention_bf16_emul(q, k, v, *, causal=True, q_offset=0, bk=None):
+    """Plain tiled emulation of the bf16 flash kernel's arithmetic (for the
+    tests; nothing on the main path runs it): an online softmax over key
+    tiles of ``bk`` (the kernel's, by default) in the log2 domain with the
+    scale folded in, the f32 p summed into l, p rounded to bf16 before
+    P.V with f32 accumulation, acc / max(l, 1e-30) cast to q's dtype."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    bk = bk or FLASH_BF16_BK[hd]
+    c = math.log2(math.e) / math.sqrt(hd)
+    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, hd).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]       # (B, Hkv, 1, Sk, hd)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    m = torch.full(qf.shape[:-1], -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, Sk, bk):
+        s = qf @ kf[..., k0:k0 + bk, :].mT
+        if causal:
+            kpos = k0 + torch.arange(s.shape[-1], device=q.device)
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        p = torch.exp2(s * c - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = (acc * corr[..., None]
+               + p.to(torch.bfloat16).float() @ vf[..., k0:k0 + bk, :])
+        m = m_new
+    o = acc / l.clamp(min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd).to(q.dtype)

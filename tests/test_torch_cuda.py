@@ -8,14 +8,17 @@ also runs on a GPU machine without them:
 
 Tolerances are the reference's Pallas-vs-oracle ones: kernel_matrix 2e-5,
 kernel_matvec and cd_column_update 2e-4, flash_attention 2e-5 in float32
-and 3e-2 for bfloat16 inputs; plain f32 with TF32 off.
+and 3e-2 for bfloat16 inputs; plain f32 with TF32 off.  The bf16 flash
+kernel (tensor cores, p rounded to bf16) is also held to the bound derived
+from bf16's unit roundoff, |o - o_plain| <= 2^-7 |o_plain| + 2^-8
+softmax(s).|v| + 1e-4 elementwise (``ref.flash_bf16_share``).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.kernels import Kernel
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 
 KINDS = [dict(kind="rbf", gamma=4.0),
          dict(kind="poly", gamma=0.5, degree=3, coef0=1.0),
@@ -187,3 +190,85 @@ def test_cuda_flash_attention_strided_and_folded(cuda_device):
                                                        causal=False),
                                rtol=2e-5, atol=2e-5)
     torch.cuda.synchronize()
+
+
+# bf16 at every head dim (MHA 4/4 at 64, GQA 8/2 at 128, MQA 4/1 at 256),
+# at lengths that are no tile multiple, with and without a query offset
+BF16_HEADS = {64: (2, 4, 4), 128: (1, 8, 2), 256: (2, 4, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("q_offset", [0, 37])
+@pytest.mark.parametrize("S", [77, 131, 200])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_cuda_flash_bf16_within_derived_bound(cuda_device, hd, S, q_offset,
+                                              causal):
+    """The bf16 tensor-core kernel against ``flash_attention_ref`` at the
+    reference's 3e-2 and within the derived bound, and against its plain
+    emulation (``flash_attention_bf16_emul``) within the same bound; one
+    launch counted."""
+    B, Hq, Hkv = BF16_HEADS[hd]
+    rng = np.random.default_rng(hd + S + q_offset)
+    q = torch.tensor(rng.standard_normal((B, S - q_offset, Hq, hd)),
+                     dtype=torch.bfloat16, device=cuda_device)
+    k, v = (torch.tensor(rng.standard_normal((B, S, Hkv, hd)),
+                         dtype=torch.bfloat16, device=cuda_device)
+            for _ in range(2))
+    kw = dict(causal=causal, q_offset=q_offset)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention_ref(q, k, v, **kw).float(),
+                               rtol=3e-2, atol=3e-2)
+    o, sv = ref.flash_bf16_bound(q, k, v, **kw)
+    assert ref.flash_bf16_share(got, o, sv) <= 1.0
+    emul = ref.flash_attention_bf16_emul(q, k, v, **kw)
+    assert ref.flash_bf16_share(got, emul, sv) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_fused_qkv_view(cuda_device):
+    """bf16 q, k, v sliced out of one fused projection (strides of their
+    own, bases 256 bytes apart) go through the TMA kernel."""
+    rng = np.random.default_rng(6)
+    B, S, H, hd = 2, 150, 4, 64
+    qkv = torch.tensor(rng.standard_normal((B, S, 3, H, hd)),
+                       dtype=torch.bfloat16, device=cuda_device)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    o, sv = ref.flash_bf16_bound(q, k, v)
+    assert ref.flash_bf16_share(got, o, sv) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_refuses_what_tma_cannot_read(cuda_device):
+    """A bf16 input whose sequence stride is no multiple of 16 bytes, or
+    whose base is not 16-byte aligned, raises before any launch."""
+    bf = torch.bfloat16
+    wide = torch.zeros(1, 64, 1, 68, dtype=bf, device=cuda_device)[..., :64]
+    flat = torch.zeros(64 * 2 * 64 + 1, dtype=bf, device=cuda_device)
+    unaligned = flat[1:].view(1, 64, 2, 64)
+    before = ops.LAUNCHES["flash_attention"]
+    for bad in (wide, unaligned):
+        with pytest.raises(ValueError):
+            ops.flash_attention(bad, bad, bad)
+    assert ops.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_kernel_uses_tensor_cores(cuda_device):
+    """The built library's bf16 kernels (one a head dim) hold wgmma
+    (HGMMA) and TMA loads (UTMALDG) in their SASS."""
+    counts = build.sass_counts("flash_attention")
+    bf16 = {fn: c for fn, c in counts.items()
+            if "flash_attention_bf16_kernel" in fn}
+    assert len(bf16) == 3, counts
+    assert all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in bf16.values()), bf16
