@@ -9,16 +9,23 @@ csrc/ with nvcc (into build/repro_torch_kernels/) and runs seven phases:
 
 1. environment: card, power limit, versions, kernel build time; TF32 off;
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes: errors, kernel / plain / bound times;
+   path's shapes (kernel_matvec also at the n x n shape of the level-0
+   gradient and the objective, the plain version over a row slice):
+   errors, kernel / plain / bound times; the split-TF32 kernels'
+   (cd_column_update, kernel_matvec) bounds under the arithmetic they run,
+   with the f32 CUDA-core bound beside them, and their errors and the plain
+   versions' against float64;
 3. a fit through the kernels against a fit through the plain versions on
    the card (covtype_like, n = 8192, levels = 2, full_gram_threshold =
    4096, so level 0 takes the Gram-free block CD): same objective to 1e-4
    relative, same test accuracy;
 4. the main path: binary C-SVC on covtype_like at the paper's covtype
    split (464,810 training points, 116,202 queries, d = 54), k = 4,
-   levels = 4, m = 1000, C = 8, gamma = 1, at most 15,000 coordinate
-   descent iterations a (sub)problem, then exact and early (eq. 11)
-   prediction, with the launch count of every kernel over that run; the
+   levels = 4, m = 1000, C = 8, gamma = 1, the default 30,000 coordinate
+   descent iterations a (sub)problem at most (level 0 replays its
+   iteration as a CUDA graph), then exact and early (eq. 11) prediction,
+   with the launch count of every kernel over that run (one
+   cd_column_update a level-0 iteration); the
    early path through the kernels is held against its plain versions in
    float32 and float64 on the same queries;
 5. serving phase 4's early model (level-1 alpha, level-1 partition): a
@@ -32,7 +39,7 @@ csrc/ with nvcc (into build/repro_torch_kernels/) and runs seven phases:
    over the serving path;
 6. the solver loops' cost per step at the main path's shapes: wall time
    without the profiler, device time from torch.profiler, and their ratio,
-   the device's busy share;
+   the device's busy share; the level-0 iteration graphed and eager;
 7. dense-LM serving (qwen1.5-0.5b at full width, bf16, random weights
    from seed 0): (a) the flash library's bf16 kernels hold wgmma (HGMMA)
    and TMA (UTMALDG) instructions in their SASS; the flash_attention
@@ -71,18 +78,17 @@ SEED = 0
 DEV = "cuda"
 N_TRAIN, N_TEST = 464_810, 116_202      # the paper's covtype split
 GRAM_BUDGET = 16 * 2 ** 30              # bytes for a level's cluster Grams
-# CD iteration cap of every (sub)problem of the main fit, half the default
-# 30,000: level 0 does not converge at either (pg_max 8.8e-2 at 30,000),
-# and its launch-bound iterations (13-20 ms each, by the host) are most of
-# the smoke's time, which must stay well inside its limit
-MAIN_MAX_ITERS = 15_000
 FIT_N, FIT_N_TEST = 8192, 2048          # phase 3
 ACC_FLOOR = 0.75                        # least exact and early test accuracy
 EARLY_CHECK_N = 2048                    # queries in the early kernel-vs-plain check
 EARLY_TOL = 2e-5                        # of 1 + sum_j K(x, x_j) |beta_j|
 PEAK_F32_FLOPS = 67e12                  # H100 SXM, f32 without tensor cores
 PEAK_BF16_FLOPS = 989e12                # H100 SXM, dense bf16 tensor cores
+PEAK_TF32_FLOPS = 495e12                # H100 SXM, dense TF32 tensor cores
+PEAK_EX2 = 16 * 132 * 1.98e9            # MUFU exp2 a second (16 a clock an SM)
 PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
+NXN_ROWS = 1024                         # rows of the n x n plain check
+F64_ROWS = 512                          # rows of the float64 checks
 SVM_KERNELS = ("kermat", "kernel_matvec", "cd_column_update", "kmeans_assign")
 SOURCES = {"kermat": ("src/repro_torch/kernels/csrc/kermat.cu",
                       "src/repro/kernels/kermat.py:75"),
@@ -147,6 +153,27 @@ def bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def split_bound(pairs: float, d: int, nbytes: float):
+    """The least time of a split-TF32 kernel (csrc/rbf_tile.cuh) at 700 W:
+    three TF32 products of depth d a pair on the tensor cores, one MUFU
+    exp2 a pair, the bytes once.  (ms, "bytes" or "operations", what bounds
+    it)."""
+    times = {"split-TF32 products": 3 * 2 * d * pairs / PEAK_TF32_FLOPS,
+             "MUFU exps": pairs / PEAK_EX2, "bytes": nbytes / PEAK_BYTES}
+    detail = max(times, key=times.get)
+    return (times[detail] * 1e3, "bytes" if detail == "bytes"
+            else "operations", detail)
+
+
+def rbf_f64(A, B, gamma):
+    """K(A, B) in float64 (the Gram expansion, unshifted): the yardstick of
+    the float64 checks."""
+    A, B = A.double(), B.double()
+    sq = (A * A).sum(-1)[..., :, None] + (B * B).sum(-1)[..., None, :] \
+        - 2 * A @ B.mT
+    return (-gamma * sq.clamp(min=0.0)).exp()
+
+
 def phase_kernels(torch, Xtr, Xq_test, cfg_main, k_leaves):
     """Phase 2: each kernel against its plain version at main-path shapes."""
     from repro_torch.core.predict import early_capacity
@@ -186,6 +213,9 @@ def phase_kernels(torch, Xtr, Xq_test, cfg_main, k_leaves):
     def matmul_matvec():
         for r in range(0, cap, blk):
             torch.bmm(Q[:, r:r + blk], M.transpose(1, 2))
+    # the level-0 gradient and the objective: K(X, X) @ v over all n points;
+    # the plain version over the first NXN_ROWS rows
+    vn = torch.randn(n, device=DEV, generator=gen)
     # level-0 rank-64 update over all n points
     B = 64
     ys = torch.where(torch.rand(Xtr.shape[0], device=DEV,
@@ -193,6 +223,7 @@ def phase_kernels(torch, Xtr, Xq_test, cfg_main, k_leaves):
     w = torch.randn(B, device=DEV, generator=gen)
     Xb = Xtr[:B].contiguous()
     f_pair = 2 * d + 5            # dot product + RBF epilogue per K entry
+    g = kern.gamma
     cases = {
         "kermat": dict(
             run=lambda: ops.kernel_matrix(Xc, Xc, kern),
@@ -206,14 +237,32 @@ def phase_kernels(torch, Xtr, Xq_test, cfg_main, k_leaves):
             plain=plain_matvec, matmul=matmul_matvec,
             flops=k1 * cap * nc1 * (f_pair + 2),
             bytes=4 * (k1 * (cap + nc1) * d + k1 * (nc1 + cap)),
+            pairs=k1 * cap * nc1,
+            f64=lambda got: (got[:, :F64_ROWS], torch.stack(
+                [rbf_f64(Q[i, :F64_ROWS], M[i], g) @ v[i].double()
+                 for i in range(k1)])),
             tol=2e-4, reps=5,
             shape=f"({k1}, {cap}, {d}) x ({k1}, {nc1}, {d})"),
+        "kernel_matvec_nxn": dict(
+            run=lambda: ops.kernel_matvec(Xtr, Xtr, vn, kern),
+            plain=lambda: ref.kernel_matvec_ref(Xtr[:NXN_ROWS], Xtr, vn,
+                                                **rkw),
+            matmul=lambda: Xtr[:NXN_ROWS] @ Xtr.T,
+            flops=n * n * (f_pair + 2), bytes=4 * (n * d + 2 * n),
+            pairs=n * n, rows=NXN_ROWS,
+            f64=lambda got: (got[:F64_ROWS],
+                             rbf_f64(Xtr[:F64_ROWS], Xtr, g) @ vn.double()),
+            tol=2e-4, reps=2, shape=f"({n}, {d}) x ({n}, {d}), plain over "
+                                    f"the first {NXN_ROWS} rows"),
         "cd_column_update": dict(
             run=lambda: ops.cd_column_update(Xtr, ys, Xb, w, kern),
             plain=lambda: ref.cd_column_update_ref(Xtr, ys, Xb, w, **rkw),
             matmul=lambda: Xtr @ Xb.T,
             flops=Xtr.shape[0] * B * (f_pair + 2),
             bytes=4 * (Xtr.shape[0] * (d + 2) + B * (d + 1)),
+            pairs=Xtr.shape[0] * B,
+            f64=lambda got: (got, ys.double() * (rbf_f64(Xtr, Xb, g)
+                                                 @ w.double())),
             tol=2e-4, reps=20, shape=f"({Xtr.shape[0]}, {d}) x ({B}, {d})"),
     }
     rows = {}
@@ -221,26 +270,55 @@ def phase_kernels(torch, Xtr, Xq_test, cfg_main, k_leaves):
         got = c["run"]()
         want = c["plain"]()
         torch.cuda.synchronize()
-        diff = (got - want).abs()
+        r = c.get("rows")
+        diff = ((got[:r] if r else got) - want).abs()
         err = float(diff.max())
         # the reference's parity form: |got - want| <= tol + tol * |want|
         rel = float((diff / (1.0 + want.abs())).max())
+        extra, f64 = "", {}
+        if "f64" in c:
+            # the split-TF32 kernels shift their operands, and so do their
+            # plain versions: both are also held to float64 (unshifted),
+            # same form and tolerance, and either failing fails the run
+            mine, exact = c["f64"](got)
+            for who, val in (("kernel", mine),
+                             ("plain", want[..., :mine.shape[-1]])):
+                f64[who] = float(((val.double() - exact).abs()
+                                  / (1.0 + exact.abs())).max())
+            extra = (f" err_vs_f64={f64['kernel']:.3e} plain_err_vs_f64="
+                     f"{f64['plain']:.3e} (first {mine.shape[-1]} rows)")
+            del mine, exact
         del got, want, diff
+        torch.cuda.empty_cache()
         ms = cuda_ms(torch, c["run"], c["reps"])
         plain_ms = cuda_ms(torch, c["plain"], max(2, c["reps"] // 2))
         mm_ms = cuda_ms(torch, c["matmul"], c["reps"])
         bound_ms, bound_by = bound(c["flops"], c["bytes"])
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, matmul_ms=mm_ms)
+        bound_text = f"bound_ms={bound_ms:.4f} ({bound_by})"
+        if "pairs" in c:
+            # the split-TF32 kernels: bound under their own arithmetic, the
+            # f32 CUDA-core bound beside it
+            sb, sby, detail = split_bound(c["pairs"], d, c["bytes"])
+            row.update(bound_ms=sb, bound_by=sby, bound_detail=detail,
+                       bound_f32_ms=bound_ms)
+            row["max_err_over_1_plus_abs_plain"] = rel
+            bound_text = (f"bound_ms={sb:.4f} ({detail}) bound_f32_ms="
+                          f"{bound_ms:.4f} share_of_bound={sb / ms:.4f}")
         log(f"kernel {name} {c['shape']}: max_abs_err={err:.3e} "
             f"max_err_over_1_plus_abs_plain={rel:.3e} (tolerance "
-            f"{c['tol']:.0e}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) "
+            f"{c['tol']:.0e}){extra} kernel_ms={ms:.4f} plain_ms="
+            f"{plain_ms:.4f} {bound_text} "
             f"library_ms(torch.matmul, Gram product only)={mm_ms:.4f}")
         if not rel <= c["tol"]:
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{rel} > {c['tol']}")
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          matmul_ms=mm_ms)
+        for who, e in f64.items():
+            if not e <= c["tol"]:
+                raise AssertionError(f"{name}: the {who} disagrees with "
+                                     f"float64: {e} > {c['tol']}")
+        rows[name] = row
         torch.cuda.empty_cache()
     # kmeans_assign at the level-l_max assignment (all n points against the
     # m-point sample, k^l_max centres) and at the eq.-11 routing of the test
@@ -446,7 +524,8 @@ def phase_main(torch, Xtr, ytr, Xte, yte, cfg):
         f"exact_us_per_query={1e6 * t_exact / nq:.3f} "
         f"early_us_per_query={1e6 * t_early / nq:.3f} "
         f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.2f}")
-    log("kernels " + json.dumps(launches))
+    log("kernels " + json.dumps(launches) + f" (level-0 iterations "
+        f"{st0['iters']}, cap {cfg.max_iters})")
     # the early path's routing: test queries and training members per
     # level-1 cluster
     part = model.partition
@@ -469,6 +548,17 @@ def phase_main(torch, Xtr, ytr, Xte, yte, cfg):
     if launches["kmeans_assign"] < cfg.levels + 1:
         raise AssertionError("kmeans_assign did not route every fit level "
                              f"and the early path: {launches}")
+    # one cd_column_update a level-0 iteration, replayed in the CUDA graph:
+    # as many as the iterations where level 0 ran to its cap, else up to
+    # SYNC_EVERY - 1 frozen ones more (the loop checks the host every
+    # SYNC_EVERY)
+    from repro_torch.core.solver import SYNC_EVERY
+
+    steps, it0 = launches["cd_column_update"], st0["iters"]
+    if not (steps == it0 if it0 == cfg.max_iters
+            else it0 <= steps < it0 + SYNC_EVERY):
+        raise AssertionError(f"cd_column_update launches {steps} against "
+                             f"{it0} level-0 iterations")
     return launches, early, d_level1, d_early
 
 
@@ -640,7 +730,8 @@ def wall_ms(torch, fn) -> float:
 
 
 def device_ms(torch, fn) -> dict:
-    """Device ms of ``fn``'s kernels, by name, from ``torch.profiler``."""
+    """Device ms and launches of ``fn``'s kernels, by name, from
+    ``torch.profiler``: {name: (ms, count)}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -651,27 +742,56 @@ def device_ms(torch, fn) -> dict:
     by_name = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
+            ms, count = by_name.get(e.key, (0.0, 0))
+            by_name[e.key] = (ms + e.self_device_time_total / 1e3,
+                              count + e.count)
     return by_name
 
 
-def loop_cost(torch, run, steps: int):
-    """A solver loop's cost a step, net of its set-up (``run(0)``): wall ms
-    without the profiler (the profiler slows these launch-bound loops
-    down), and device ms by kernel from the profiler."""
-    run(2)
-    wall = (wall_ms(torch, lambda: run(steps))
-            - wall_ms(torch, lambda: run(0))) / steps
-    with_steps = device_ms(torch, lambda: run(steps))
-    setup = device_ms(torch, lambda: run(0))
-    return wall, {key: (v - setup.get(key, 0.0)) / steps
-                  for key, v in with_steps.items()}
+def counted_device_ms(torch, fn) -> dict:
+    """``device_ms`` of ``fn``, checking that the profiler saw as many
+    ``cd_column_update`` and ``kernel_matvec`` kernels as ``ops.LAUNCHES``
+    counted in the run (a CUDA graph's launches are counted once a replay
+    by bookkeeping; this shows the replays ran them)."""
+    from repro_torch.kernels import ops
+
+    before = dict(ops.LAUNCHES)
+    by_name = device_ms(torch, fn)
+    for name in ("cd_column_update", "kernel_matvec"):
+        launched = ops.LAUNCHES[name] - before[name]
+        seen = sum(count for key, (_, count) in by_name.items()
+                   if f"{name}_kernel" in key)
+        if seen != launched:
+            raise AssertionError(f"the profiler saw {seen} {name} kernels, "
+                                 f"ops.LAUNCHES counted {launched}")
+    return by_name
+
+
+def loop_cost(torch, run, steps: int, base: int = 0, prof_steps: int = 0):
+    """A solver loop's cost a step, net of its set-up: ``run(base + steps)``
+    less ``run(base)``, over ``steps``, wall ms without the profiler (the
+    profiler slows these launch-bound loops down); and device ms by kernel
+    from the profiler over ``prof_steps`` (default ``steps``), counting only
+    the kernels whose launches grow with the steps (the set-up's own, such
+    as the initial gradient, vary by more than a step's time); and the
+    launches of the profiled run's kernels, by name."""
+    prof_steps = prof_steps or steps
+    run(base + 2)
+    wall = (wall_ms(torch, lambda: run(base + steps))
+            - wall_ms(torch, lambda: run(base))) / steps
+    with_steps = counted_device_ms(torch, lambda: run(base + prof_steps))
+    setup = counted_device_ms(torch, lambda: run(base))
+    return wall, {key: (ms - setup.get(key, (0.0, 0))[0]) / prof_steps
+                  for key, (ms, count) in with_steps.items()
+                  if count > setup.get(key, (0.0, 0))[1]}, \
+        {key: count for key, (_, count) in with_steps.items()}
 
 
 def phase_loops(torch, Xtr, ytr, cfg):
-    """Phase 5: cost of the solver loops a step on the main path's shapes
+    """Phase 6: cost of the solver loops a step on the main path's shapes
     (greedy CD on a level-l_max cluster batch; level-0 block CD over all
-    n), and the device's busy share: device time over wall time."""
+    n, replayed as a CUDA graph and eager), and the device's busy share:
+    device time over wall time."""
     from repro_torch.core import gramop
     from repro_torch.core import solver as S
     from repro_torch.kernels import ops
@@ -684,7 +804,7 @@ def phase_loops(torch, Xtr, ytr, cfg):
     Q = ops.kernel_matrix(Xc, Xc, cfg.kernel)
     Q.mul_(yc[:, :, None]).mul_(yc[:, None, :])
     steps = 300
-    wall, dev = loop_cost(
+    wall, dev, _ = loop_cost(
         torch, lambda s: S.solve_box_qp(Q, cfg.C, tol=-1.0, max_iters=s), steps)
     busy = sum(dev.values())
     log(f"loop greedy CD ({k}, {nc}) x {steps} steps: {wall:.4f} ms/step, "
@@ -692,15 +812,29 @@ def phase_loops(torch, Xtr, ytr, cfg):
     del Q
     op = gramop.GramOperator(Xd=Xtr, s=ytr, kernel=cfg.kernel,
                              use_kernels=True)
-    iters = 50
-    wall, dev = loop_cost(
-        torch, lambda s: S.solve_box_qp_op(op, cfg.C, tol=-1.0, max_iters=s),
-        iters)
-    busy = sum(dev.values())
-    cd = sum(v for key, v in dev.items() if "cd_column_update" in key)
-    log(f"loop level-0 block CD (n={n}, B=64) x {iters} iters: "
-        f"{wall:.4f} ms/iter, device {busy:.4f} ms/iter, device busy "
-        f"{100 * busy / wall:.1f}% (cd_column_update {cd:.4f} ms/iter)")
+    out = {}
+    # graphed: both runs capture (base > GRAPH_WARMUP), so the difference
+    # is replays; eager: 50 iterations
+    for graph, iters, base, prof in ((True, 500, 16, 100), (False, 50, 0, 0)):
+        wall, dev, seen = loop_cost(
+            torch, lambda s: S.solve_box_qp_op(op, cfg.C, tol=-1.0,
+                                               max_iters=s, graph=graph),
+            iters, base, prof)
+        cd_seen = sum(c for key, c in seen.items() if "cd_column_update" in key)
+        busy = sum(dev.values())
+        cd = sum(v for key, v in dev.items() if "cd_column_update" in key)
+        name = "graphed" if graph else "eager"
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+        log(f"loop level-0 block CD (n={n}, B=64), {name}, x {iters} iters "
+            f"(profiled over {prof or iters}): "
+            f"{wall:.4f} ms/iter, device {busy:.4f} ms/iter, device busy "
+            f"{100 * busy / wall:.1f}% (cd_column_update {cd:.4f} ms/iter, "
+            f"{cd_seen} kernels in the profiled run of {base + (prof or iters)}"
+            " iterations, as counted; "
+            f"{len(dev)} kernel names seen by the profiler; top: "
+            + "; ".join(f"{key[:50]} {v:.4f}" for key, v in top) + ")")
+        out[name] = dict(ms=wall, device_ms=busy, busy=busy / wall, cd_ms=cd)
+    return out
 
 
 def flash_case(torch, B, S, Hq, Hkv, hd, dtype, q_offset=0, controls=False):
@@ -967,7 +1101,8 @@ def phase_lm(torch):
     times = {True: [], False: []}
     for use in (False, True, True, False):
         times[use].append(wall_ms(torch, prefill_with(use)))
-    dev = device_ms(torch, prefill_with(True))
+    dev = {key: ms for key, (ms, _) in
+           device_ms(torch, prefill_with(True)).items()}
     busy = sum(dev.values())
     flash = sum(v for key, v in dev.items() if "flash_attention" in key)
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
@@ -1045,8 +1180,7 @@ def main() -> int:
         f"d={Xtr.shape[1]}, {time.perf_counter() - t0:.2f}s")
 
     cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=1.0), C=8.0, k=4, levels=4,
-                      m=1000, max_iters=MAIN_MAX_ITERS,
-                      gram_budget=GRAM_BUDGET, seed=SEED)
+                      m=1000, gram_budget=GRAM_BUDGET, seed=SEED)
     t0 = time.perf_counter()
     rows = phase_kernels(torch, Xtr, Xte, cfg, cfg.k ** cfg.levels)
     log(f"phase kernels: {time.perf_counter() - t0:.2f}s")
@@ -1063,7 +1197,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase serving: {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
-    phase_loops(torch, Xtr, ytr, cfg)
+    level0 = phase_loops(torch, Xtr, ytr, cfg)
     log(f"phase loops: {time.perf_counter() - t0:.2f}s")
     del Xtr, ytr, Xte, yte
     torch.cuda.empty_cache()
@@ -1093,6 +1227,23 @@ def main() -> int:
             row.update({f"routing_{key}": rt[key] for key in
                         ("max_abs_err", "ms", "plain_ms", "bound_ms",
                          "matmul_ms")})
+        if "bound_f32_ms" in r:
+            row.update(bound_detail=r["bound_detail"],
+                       bound_f32_ms=r["bound_f32_ms"],
+                       max_err_over_1_plus_abs_plain=r[
+                           "max_err_over_1_plus_abs_plain"])
+        if name == "kernel_matvec":
+            nxn = rows["kernel_matvec_nxn"]
+            row.update({f"nxn_{key}": nxn[key] for key in
+                        ("max_abs_err", "max_err_over_1_plus_abs_plain",
+                         "ms", "plain_ms", "bound_ms", "bound_detail",
+                         "bound_f32_ms", "matmul_ms")},
+                       nxn_plain_rows=NXN_ROWS)
+        if name == "cd_column_update":
+            row.update({f"level0_{key}": {m: level0[key][m] for m in
+                                          ("ms", "device_ms", "busy",
+                                           "cd_ms")}
+                        for key in ("graphed", "eager")})
         kernels.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

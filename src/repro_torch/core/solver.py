@@ -235,16 +235,60 @@ def solve_box_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
                            p=p)
 
 
+def _op_step(op: "gramop.GramOperator", alpha, g, cvec, pg_max, it, running,
+             tol: float, max_iters: int, block: int, sweeps: int, acc):
+    """One iteration of the level-0 block CD, in place on the state tensors
+    (alpha, g, pg_max, it, running): what the CUDA graph captures and the
+    eager loop runs."""
+    sc = torch.abs(proj_grad(alpha, g, cvec))
+    idx = _top_block(sc, block)
+    step_max = sc.gather(0, idx[:1])[0]
+    ab = alpha[idx]
+    if op.use_kernels:
+        # fused: the (n, B) column block never reaches device memory; only
+        # the (B, B) working-set block is formed
+        Qbb = op.qbb(idx).to(acc)
+    else:
+        Qb = op.q_block(idx).to(acc)            # (n, B) on the fly
+        Qbb = Qb[idx]
+    new_ab = _solve_small_qp(Qbb[None], g[idx][None], ab[None],
+                             cvec[idx][None], sweeps)[0]
+    delta = torch.where(running, new_ab - ab, 0.0)
+    alpha[idx] = torch.where(running, new_ab, ab)
+    g.copy_(op.col_update(g, idx, delta) if op.use_kernels
+            else g + Qb @ delta)
+    pg_max.copy_(torch.where(running, step_max, pg_max))
+    it += running
+    running &= (pg_max > tol) & (it < max_iters)
+
+
+# Eager iterations before the capture of the graphed loop (on a side
+# stream, as PyTorch asks of a capture's warm-up); they are real iterations.
+GRAPH_WARMUP = 2
+
+
 def solve_box_qp_op(op: "gramop.GramOperator", C,
                     alpha0: Optional[torch.Tensor] = None, tol: float = 1e-3,
                     max_iters: int = 500, block: int = 64, sweeps: int = 4,
-                    grad_chunks: int = 16, p=-1.0) -> SolveResult:
+                    grad_chunks: int = 16, p=-1.0,
+                    graph: Optional[bool] = None) -> SolveResult:
     """The engine behind ``solve_box_qp_matvec``: block greedy CD against a
-    ``GramOperator`` (one problem)."""
+    ``GramOperator`` (one problem).
+
+    ``graph`` (default: on a CUDA device with ``op.use_kernels``) captures
+    one iteration into a CUDA graph after ``GRAPH_WARMUP`` eager ones and
+    replays it; the state lives in static tensors and the host still reads
+    ``running`` every ``SYNC_EVERY`` iterations, so the results equal the
+    eager loop's bit for bit.  ``graph=False`` runs the eager loop (the
+    CPU's); a failed capture raises."""
     X = op.Xd
     n = op.n_dual
     if block > n:
         raise ValueError(f"block {block} larger than the problem size {n}")
+    if graph is None:
+        graph = X.device.type == "cuda" and op.use_kernels
+    if graph and X.device.type != "cuda":
+        raise ValueError("a CUDA graph needs a CUDA device")
     acc = torch.promote_types(X.dtype, torch.float32)
     alpha = (torch.zeros(n, dtype=X.dtype, device=X.device) if alpha0 is None
              else _broadcast(alpha0, (n,), X))
@@ -254,28 +298,34 @@ def solve_box_qp_op(op: "gramop.GramOperator", C,
     pg_max = torch.amax(torch.abs(proj_grad(alpha, g, cvec)))
     it = torch.zeros((), dtype=torch.int64, device=X.device)
     running = (pg_max > tol) & (it < max_iters)
-    for step in range(max_iters):
-        if step % SYNC_EVERY == 0 and not bool(running):
+
+    def step():
+        _op_step(op, alpha, g, cvec, pg_max, it, running, tol, max_iters,
+                 block, sweeps, acc)
+
+    if graph:
+        from repro_torch.kernels import ops
+
+        side = torch.cuda.Stream(X.device)
+        cuda_graph, per_replay = None, {}
+    for k in range(max_iters):
+        if k % SYNC_EVERY == 0 and not bool(running):
             break
-        sc = torch.abs(proj_grad(alpha, g, cvec))
-        idx = _top_block(sc, block)
-        step_max = sc.gather(0, idx[:1])[0]
-        ab = alpha[idx]
-        if op.use_kernels:
-            # fused: the (n, B) column block never reaches device memory;
-            # only the (B, B) working-set block is formed
-            Qbb = op.qbb(idx).to(acc)
+        if not graph:
+            step()
+        elif k < GRAPH_WARMUP:
+            side.wait_stream(torch.cuda.current_stream(X.device))
+            with torch.cuda.stream(side):
+                step()
+            torch.cuda.current_stream(X.device).wait_stream(side)
         else:
-            Qb = op.q_block(idx).to(acc)            # (n, B) on the fly
-            Qbb = Qb[idx]
-        new_ab = _solve_small_qp(Qbb[None], g[idx][None], ab[None],
-                                 cvec[idx][None], sweeps)[0]
-        delta = torch.where(running, new_ab - ab, 0.0)
-        alpha[idx] = torch.where(running, new_ab, ab)
-        g = op.col_update(g, idx, delta) if op.use_kernels else g + Qb @ delta
-        pg_max = torch.where(running, step_max, pg_max)
-        it += running
-        running &= (pg_max > tol) & (it < max_iters)
+            if cuda_graph is None:
+                cuda_graph = torch.cuda.CUDAGraph()
+                with ops.recording() as per_replay, \
+                        torch.cuda.graph(cuda_graph):
+                    step()
+            cuda_graph.replay()
+            ops.add_launches(per_replay)
     return SolveResult(alpha, g, it, pg_max)
 
 

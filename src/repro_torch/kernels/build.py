@@ -38,10 +38,10 @@ SIGNATURES = {
     "kermat": ("rt_kermat",
                [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _F, _I, _F, _P]),
     "kermatvec": ("rt_kernel_matvec",
-                  [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _F, _I,
-                   _F, _P]),
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _F,
+                   _I, _F, _P]),
     "cd_update": ("rt_cd_column_update",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _P]),
+                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _P]),
     "kmeans_assign": ("rt_kmeans_assign",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                        _P]),

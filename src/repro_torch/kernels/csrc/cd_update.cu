@@ -5,121 +5,218 @@
 // cd_column_update (pl.pallas_call at cd_update.py:78), reached through
 // ops.cd_column_update.
 //
-// Work: per (row, selected column) pair 2d flops of dot product plus 2 for
-// the contraction with w; the bytes are n d + B d + B + 2n floats.  At
-// d = 54 and B = 64 that is about 60 flops per byte, past the H100's f32
-// ridge (67 TFLOP/s over 3.35 TB/s = 20 flop/byte): bound by f32
-// operations.
+// Bound: X (n, d) is read once and the (n,) output written once; Xb, w are
+// a few KB.  At the level-0 shape (n = 464,810, d = 54, B = 64) the bytes
+// take 0.031 ms at 3.35 TB/s, the split-TF32 products (3 x 2 d flops a
+// pair) 0.020 ms at 495 TFLOP/s and the exps 0.007 ms: bound by bytes,
+// once the products leave the CUDA cores.
 //
-// Design: every block holds all of Xb (B <= 256 rows, transposed and
-// zero-padded to 16-deep chunks), its row norms and w in shared memory,
-// and takes one 64-row tile of X.  The (64, B) kernel block is accumulated
-// in registers (4 x NJ per thread, NJ = padded B / 16) and contracted with
-// w in the epilogue, so the (n, B) column block never reaches device memory:
-// only the (n,) result does.  Padded columns carry w = 0.
-#include "common.cuh"
+// Design: a persistent grid (two blocks an SM where they fit, 8 warps
+// each).  Each block stages Xb once, split into TF32 (hi, lo) pairs in
+// fragment order, with its norm terms and w (zero past B), then walks
+// 128-row tiles of X through a ring of cp.async stages (a tile's rows lie
+// contiguous, so it is one flat run of 16-byte copies, packed), so the next
+// tiles load while tile t is multiplied.  A warp owns 16 rows of a tile and splits them in
+// registers as it loads them (no row is split twice), forms their 16 x 64
+// block of x.xb on the tensor cores (rbf_tile.cuh), applies the transform
+// in registers and contracts it with w; a quad's xor shuffles finish each
+// row's sum inside the warp, so the result does not depend on scheduling.
+// B > 64 takes 64 columns a pass over the staged tile.
+#include "rbf_tile.cuh"
 
-template <int NJ>
-__global__ void __launch_bounds__(RT_THREADS)
-cd_column_update_kernel(const float* __restrict__ X, const float* __restrict__ y,
-                        const float* __restrict__ Xb, const float* __restrict__ w,
-                        float* __restrict__ out, int n, int B, int d, int dpad,
-                        int kind, float gamma, int degree, float coef0) {
-    constexpr int BP = 16 * NJ;   // padded block width
-    extern __shared__ float smem[];
-    float* XbS = smem;                    // (dpad, BP), XbS[k * BP + j]
-    float* bn = XbS + (size_t)dpad * BP;  // (BP,) |xb_j|^2
-    float* ws = bn + BP;                  // (BP,) w, zero past B
-    __shared__ float Xs[RT_BK][RT_BM + 4];
-    __shared__ float xn[RT_BM];
+#define CD_THREADS 256
+#define CD_WARPS 8
+#define CD_TM 128          // rows of X a tile (8 warps of 16 rows)
+#define CD_CW 64           // columns of Xb a pass (8 fragment blocks)
+#define CD_SMEM_MAX 232448 // shared memory a block may use (227 KB)
+#define CD_SMEM_SM 233472  // shared memory of an SM (228 KB)
 
-    const int r0 = blockIdx.x * RT_BM;
-    const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-
-    for (int e = t; e < dpad * BP; e += RT_THREADS) {
-        const int k = e / BP, j = e % BP;
-        XbS[e] = (j < B && k < d) ? Xb[(size_t)j * d + k] : 0.0f;
-    }
-    for (int j = t; j < BP; j += RT_THREADS) ws[j] = j < B ? w[j] : 0.0f;
-    __syncthreads();
-    for (int j = t; j < BP; j += RT_THREADS) {
-        float s = 0.0f;
-        for (int k = 0; k < dpad; ++k) s = fmaf(XbS[k * BP + j], XbS[k * BP + j], s);
-        bn[j] = s;
-    }
-
-    float acc[4][NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-    float xnrm = 0.0f;
-
-    for (int k0 = 0; k0 < d; k0 += RT_BK) {
-        rt_load_tile(X, n, d, r0, k0, Xs);
-        __syncthreads();
-        if (t < RT_BM) {
-#pragma unroll
-            for (int k = 0; k < RT_BK; ++k) xnrm = fmaf(Xs[k][t], Xs[k][t], xnrm);
-        }
-#pragma unroll
-        for (int k = 0; k < RT_BK; ++k) {
-            const float* brow = XbS + (size_t)(k0 + k) * BP;
-            float a[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = Xs[k][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                const float c = brow[tx + 16 * j];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], c, acc[i][j]);
-            }
-        }
-        __syncthreads();
-    }
-    if (t < RT_BM) xn[t] = xnrm;
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        float s = 0.0f;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-            const int c = tx + 16 * j;
-            const float kv = rt_transform(acc[i][j], xn[ty + 16 * i], bn[c],
-                                          kind, gamma, degree, coef0);
-            s = fmaf(kv, ws[c], s);
-        }
-        s = rt_rowsum16(s);
-        const int r = r0 + ty + 16 * i;
-        if (tx == 0 && r < n) out[r] = y[r] * s;
-    }
+static size_t cd_smem(int nch, int d, int stages) {
+    const int bp = nch * CD_CW;
+    return (size_t)bp * rts_kp(d) * sizeof(float2)
+           + (size_t)(3 * bp + rts_stride(d)) * sizeof(float)
+           + (size_t)stages * rts_stage(CD_TM, d) * sizeof(float);
 }
 
-template <int NJ>
-static int launch(const float* X, const float* y, const float* Xb,
-                  const float* w, float* out, int n, int B, int d, int kind,
-                  float gamma, int degree, float coef0, cudaStream_t stream) {
-    const int dpad = ((d + RT_BK - 1) / RT_BK) * RT_BK;
-    const size_t smem = ((size_t)dpad * 16 * NJ + 2 * 16 * NJ) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        cd_column_update_kernel<NJ>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((n + RT_BM - 1) / RT_BM);
-    cd_column_update_kernel<NJ><<<grid, RT_THREADS, smem, stream>>>(
-        X, y, Xb, w, out, n, B, d, dpad, kind, gamma, degree, coef0);
-    return (int)cudaGetLastError();
+template <int KIND>
+__global__ void __launch_bounds__(CD_THREADS, 2)
+cd_column_update_kernel(const float* __restrict__ X, const float* __restrict__ y,
+                        const float* __restrict__ Xb, const float* __restrict__ w,
+                        const float* __restrict__ shift, float* __restrict__ out,
+                        int n, int B, int d, int nch, int stages, int vec,
+                        float gamma, int degree, float coef0) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int S = rts_stride(d), ksteps = rts_kp(d) / 8, bp = nch * CD_CW;
+    float4* Bf = (float4*)smem;                   // split Xb, fragment order
+    // (norm term, norm term, w, w) of columns 2 q and 2 q + 1, w zero past B
+    float4* tw = Bf + (size_t)bp * ksteps * 4;    // (bp / 2,)
+    float* bterm = (float*)(tw + bp / 2);         // (bp,) norm terms
+    float* sh = bterm + bp;                       // (S,) the shift
+    float* ring = sh + S;                         // stages x (CD_TM, d) packed
+    const int SR = rts_stage(CD_TM, d);
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const float c = gamma * 1.4426950408889634f, c2 = 2.0f * c;
+
+    const int ntiles = (n + CD_TM - 1) / CD_TM;
+    const int first = blockIdx.x, step = gridDim.x;
+    const int mine = first < ntiles ? (ntiles - 1 - first) / step + 1 : 0;
+    for (int s = 0; s < stages - 1; ++s) {
+        if (s < mine)
+            rts_load_flat(ring + s * SR, X, n, d, (first + s * step) * CD_TM,
+                          CD_TM, vec, tid, CD_THREADS);
+        rts_cp_commit();
+    }
+    if (KIND == KIND_RBF) rts_stage_shift(sh, shift, d);
+    rts_stage_b(Bf, bterm, bp, Xb, shift, B, d, 0, KIND, c);
+    __syncthreads();
+    for (int q = tid; q < bp / 2; q += CD_THREADS)
+        tw[q] = make_float4(bterm[2 * q], bterm[2 * q + 1],
+                            2 * q < B ? w[2 * q] : 0.0f,
+                            2 * q + 1 < B ? w[2 * q + 1] : 0.0f);
+
+    for (int it = 0; it < mine; ++it) {
+        if (stages == 3) rts_cp_wait<1>(); else rts_cp_wait<0>();
+        __syncthreads();   // tile it has landed; tile it - 1 is consumed
+        const int nx = it + stages - 1;
+        if (nx < mine)
+            rts_load_flat(ring + (nx % stages) * SR, X, n, d,
+                          (first + nx * step) * CD_TM, CD_TM, vec, tid,
+                          CD_THREADS);
+        rts_cp_commit();
+
+        // the warp's 16 rows, split in registers as they are loaded (each
+        // row by one warp), against 64 columns of Xb a pass
+        const float* As = ring + (it % stages) * SR + (16 * warp + g) * d + t;
+        float rs[2] = {0.0f, 0.0f};
+        for (int ch = 0; ch < nch; ++ch) {
+            float acc[1][8][4], small[1][8][4], an[2] = {0.0f, 0.0f};
+            rts_zero(acc, small);
+            const float4* Bc = Bf + (size_t)ch * 8 * ksteps * 32;
+#pragma unroll 1
+            for (int s = 0; s < ksteps; ++s) {
+                const float* a0 = As + 8 * s;
+                const int k = 8 * s + t;      // rows are packed: mask past d
+                const float a[4] = {
+                    rts_less(k < d ? a0[0] : 0.0f, sh, k, KIND),
+                    rts_less(k < d ? a0[8 * d] : 0.0f, sh, k, KIND),
+                    rts_less(k + 4 < d ? a0[4] : 0.0f, sh, k + 4, KIND),
+                    rts_less(k + 4 < d ? a0[8 * d + 4] : 0.0f, sh, k + 4, KIND)};
+                an[0] = fmaf(a[0], a[0], fmaf(a[2], a[2], an[0]));
+                an[1] = fmaf(a[1], a[1], fmaf(a[3], a[3], an[1]));
+                uint32_t ahi[1][4], alo[1][4], bf[8][4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) rts_split(a[q], ahi[0][q], alo[0][q]);
+                rts_load_b<8>(bf, Bc, s, ksteps);
+                rts_mma3<1, 8>(acc, small, ahi, alo, bf);
+            }
+            rts_finish(acc, small);
+            float ta[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                an[h] += __shfl_xor_sync(0xffffffffu, an[h], 1);
+                an[h] += __shfl_xor_sync(0xffffffffu, an[h], 2);
+                ta[h] = rts_norm_term(an[h], KIND, c);
+            }
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const float4 q = tw[(ch * CD_CW + 8 * j + 2 * t) / 2];
+                const float tb0 = q.x, tb1 = q.y, w0 = q.z, w1 = q.w;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const float k0 = rts_kval<KIND>(acc[0][j][2 * h], ta[h], tb0,
+                                                    c2, gamma, degree, coef0);
+                    const float k1 = rts_kval<KIND>(acc[0][j][2 * h + 1], ta[h],
+                                                    tb1, c2, gamma, degree, coef0);
+                    rs[h] = fmaf(k1, w1, fmaf(k0, w0, rs[h]));
+                }
+            }
+        }
+        const int r = (first + it * step) * CD_TM + 16 * warp + g;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+            rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+            if (t == 0 && r + 8 * h < n) out[r + 8 * h] = y[r + 8 * h] * rs[h];
+        }
+    }
+    rts_cp_wait<0>();
+}
+
+static int cd_sms = 0;
+static bool cd_attr = false;
+static int cd_occ_key[16], cd_occ_val[16], cd_occ_len = 0;
+
+// Blocks an SM holds at this shared-memory size (the same for every kind),
+// asked once a size.
+static cudaError_t cd_occupancy(size_t smem, int* occ) {
+    for (int i = 0; i < cd_occ_len; ++i)
+        if (cd_occ_key[i] == (int)smem) { *occ = cd_occ_val[i]; return cudaSuccess; }
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occ, cd_column_update_kernel<KIND_RBF>, CD_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    if (cd_occ_len < 16) {
+        cd_occ_key[cd_occ_len] = (int)smem;
+        cd_occ_val[cd_occ_len++] = *occ;
+    }
+    return cudaSuccess;
+}
+
+static cudaError_t cd_setup() {   // once, outside the per-launch path
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&cd_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    void (*fns[3])(const float*, const float*, const float*, const float*,
+                   const float*, float*, int, int, int, int, int, int, float,
+                   int, float) = {
+        cd_column_update_kernel<KIND_LINEAR>, cd_column_update_kernel<KIND_POLY>,
+        cd_column_update_kernel<KIND_RBF>};
+    for (auto fn : fns) {
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   CD_SMEM_MAX);
+        if (err != cudaSuccess) return err;
+    }
+    cd_attr = true;
+    return cudaSuccess;
 }
 
 extern "C" int rt_cd_column_update(const float* X, const float* y,
-                                   const float* Xb, const float* w, float* out,
+                                   const float* Xb, const float* w,
+                                   const float* shift, float* out,
                                    int n, int B, int d, int kind, float gamma,
                                    int degree, float coef0, void* stream) {
     if (n == 0) return 0;
+    if (B < 1 || B > 256 || d < 1 || kind < KIND_LINEAR || kind > KIND_RBF
+        || (kind == KIND_RBF && shift == nullptr))
+        return RTS_REFUSED;
+    const int nch = (B + CD_CW - 1) / CD_CW;
+    // two blocks an SM where they fit (with three stages, else two), else
+    // one block with three stages, else two
+    int stages;
+    if (2 * (cd_smem(nch, d, 3) + 1024) <= CD_SMEM_SM) stages = 3;
+    else if (2 * (cd_smem(nch, d, 2) + 1024) <= CD_SMEM_SM) stages = 2;
+    else if (cd_smem(nch, d, 3) <= CD_SMEM_MAX) stages = 3;
+    else if (cd_smem(nch, d, 2) <= CD_SMEM_MAX) stages = 2;
+    else return RTS_REFUSED;
+    const size_t smem = cd_smem(nch, d, stages);
+    cudaError_t err;
+    if (!cd_attr && (err = cd_setup()) != cudaSuccess) return (int)err;
+    int occ;
+    if ((err = cd_occupancy(smem, &occ)) != cudaSuccess) return (int)err;
+    const int ntiles = (n + CD_TM - 1) / CD_TM;
+    const int grid = ntiles < occ * cd_sms ? ntiles : occ * cd_sms;
+    const int vec = rts_vec(X);
     cudaStream_t s = (cudaStream_t)stream;
-    if (B <= 64) return launch<4>(X, y, Xb, w, out, n, B, d, kind, gamma, degree, coef0, s);
-    if (B <= 128) return launch<8>(X, y, Xb, w, out, n, B, d, kind, gamma, degree, coef0, s);
-    if (B <= 256) return launch<16>(X, y, Xb, w, out, n, B, d, kind, gamma, degree, coef0, s);
-    return (int)cudaErrorInvalidValue;
+#define CD_LAUNCH(K)                                                          \
+    cd_column_update_kernel<K><<<grid, CD_THREADS, smem, s>>>(                \
+        X, y, Xb, w, shift, out, n, B, d, nch, stages, vec, gamma, degree,  \
+        coef0)
+    if (kind == KIND_RBF) CD_LAUNCH(KIND_RBF);
+    else if (kind == KIND_POLY) CD_LAUNCH(KIND_POLY);
+    else CD_LAUNCH(KIND_LINEAR);
+#undef CD_LAUNCH
+    return (int)cudaGetLastError();
 }

@@ -3,117 +3,205 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/kermatvec.py::kernel_matvec
 // (pl.pallas_call at kermatvec.py:80), reached through ops.kernel_matvec.
 //
-// Work: out[b] (n,) = sum_j transform(x_i . z_j) v_j over Z[b] (m, d).  Per
-// (i, j) pair 2d flops of dot product plus 2 for the contraction with v;
-// the bytes are only (n + m) d + m + n floats.  At d = 54 that is hundreds
-// of flops per byte, far past the H100's f32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 flop/byte): the kernel is bound by f32 operations.
+// Bound: out[b] (n,) = sum_j transform(x_i . z_j) v_j over Z[b] (m, d).
+// The bytes are only (n + m) d + m + n floats; the work is n m pairs of a
+// depth-d product, three of them in split-TF32 (495 TFLOP/s on the tensor
+// cores), and one exp each (16 a clock an SM).  At d = 54 the products
+// bound it: 17.7 ms at the early-scoring shape (4 x 58,101 x 116,203).
 //
-// Design: a block owns a 64-row tile of X and walks every 64-column tile of
-// Z in order.  Each K tile lives only in registers (4 x 4 per thread, FMA
-// from 16-deep shared-memory chunks); the epilogue applies the transform and
-// contracts it with the tile of v at once.  The sum over Z is a loop inside
-// the block and the final row sum is a fixed shuffle pattern, with no
-// atomics across blocks, so repeated runs give identical bits.  Padded
-// columns carry v = 0 (RBF gives K(x, 0) != 0).
+// Design: a block (two warpgroups, two blocks an SM) owns a 128-row tile of
+// X, split once into TF32 hi and lo parts (rbf_tile.cuh) less the shift (rbf),
+// each stored K-major with the 128-byte swizzle that wgmma reads, with its
+// norm terms.  It streams 64-row tiles of Z: each lands by cp.async (a
+// tile's rows lie contiguous: one flat run of 16-byte copies where the
+// batch item's base allows), is split once by all the block's threads into
+// the same swizzled hi and lo layout, and the next tile loads while this
+// one is multiplied.  Each warpgroup forms its 64 (z) x 64 (x) block of
+// z.x with asynchronous wgmma (m64n64k8, f32 += tf32 x tf32, both operands
+// in shared memory): small = lo_z.hi_x + hi_z.lo_x and acc = hi_z.hi_x, so
+// the tensor core's truncating sums drift only in the small part.  It then
+// applies the transform in registers and weights it by v; each lane keeps
+// its x columns' partial sums in registers across the whole Z sweep (a
+// tile's terms, then 32 tiles, then all, so the f32 error of a 100k-term
+// sum stays small).  At the end a fixed xor pattern over a warp's row
+// lanes and a fixed four-warp sum in shared memory give each row's sum: no
+// atomics, so repeated runs give identical bits.  Padded Z rows carry
+// v = 0 (RBF gives K(x, 0) != 0).
 //
 // Grid: x = row tiles, y = batch (one launch scores all clusters).
-#include "common.cuh"
+#include "rbf_tile.cuh"
 
-__global__ void __launch_bounds__(RT_THREADS)
+#define MV_THREADS 256
+#define MV_TN 128          // rows of X a block (64 a warpgroup: the N)
+#define MV_TZ 64           // rows of Z a step (the M of every product)
+#define MV_SMEM_MAX 232448
+
+static size_t mv_smem(int d) {
+    const int stage = rts_stage(MV_TZ, d);
+    const int raw = stage > 4 * MV_TN ? stage : 4 * MV_TN;
+    return 1024 + (size_t)2 * (MV_TN + MV_TZ) * rts_slabs(d) * 128
+           + (size_t)(MV_TN + MV_TZ + rts_stride(d) + raw) * sizeof(float);
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(MV_THREADS, 2)
 kernel_matvec_kernel(const float* __restrict__ X, const float* __restrict__ Z,
-                     const float* __restrict__ v, float* __restrict__ out,
+                     const float* __restrict__ v,
+                     const float* __restrict__ shift, float* __restrict__ out,
                      int n, int m, int d,
                      long long sxb, long long szb, long long svb,
-                     int kind, float gamma, int degree, float coef0) {
+                     float gamma, int degree, float coef0) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* base = rts_smem_base(smem_raw);
     const long long b = blockIdx.y;
     X += b * sxb;
     Z += b * szb;
     v += b * svb;
+    if (KIND == KIND_RBF) shift += b * d;
     out += b * (long long)n;
-    const int r0 = blockIdx.x * RT_BM;
-    const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+    const int slabs = rts_slabs(d), ksteps = rts_kp(d) / 8;
+    const int vec = rts_vec(Z);
+    unsigned char* Xhi = base;                             // (MV_TN, slabs)
+    unsigned char* Xlo = Xhi + MV_TN * 128 * slabs;
+    unsigned char* Zhi = Xlo + MV_TN * 128 * slabs;        // (MV_TZ, slabs)
+    unsigned char* Zlo = Zhi + MV_TZ * 128 * slabs;
+    float* xterm = (float*)(Zlo + MV_TZ * 128 * slabs);    // (MV_TN,)
+    float* zterm = xterm + MV_TN;                          // (MV_TZ,)
+    float* sh = zterm + MV_TZ;                             // (S,) the shift
+    float* raw = sh + rts_stride(d);                       // (MV_TZ, d) packed
+    float* red = raw;                                      // (4, MV_TN), at the end
 
-    __shared__ float Xs[RT_BK][RT_BM + 4];
-    __shared__ float Zs[RT_BK][RT_BM + 4];
-    __shared__ float xn[RT_BM], zn[RT_BN], vs[RT_BN];
+    const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+    const int lane = tid % 32, g = lane / 4, t = lane % 4;
+    const float c = gamma * 1.4426950408889634f, c2 = 2.0f * c;
+    const int x0 = blockIdx.x * MV_TN;
+    const int ntz = (m + MV_TZ - 1) / MV_TZ;
 
-    float rowacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float xnrm = 0.0f;
+    if (ntz > 0) rts_load_flat(raw, Z, m, d, 0, MV_TZ, vec, tid, MV_THREADS);
+    rts_cp_commit();
+    if (KIND == KIND_RBF) rts_stage_shift(sh, shift, d);
+    __syncthreads();
+    rts_split_rows(Xhi, Xlo, xterm, X + (size_t)x0 * d, n - x0, d, MV_TN, sh,
+                   KIND, c, tid, MV_THREADS);
 
-    for (int c0 = 0; c0 < m; c0 += RT_BN) {
-        float acc[4][4];
+    const uint32_t zhi = rts_smem_addr(Zhi), zlo = rts_smem_addr(Zlo);
+    const uint32_t xhi = rts_smem_addr(Xhi) + wg * 64 * 128;
+    const uint32_t xlo = rts_smem_addr(Xlo) + wg * 64 * 128;
+    const int zslab = MV_TZ * 128, xslab = MV_TN * 128;
+    const float* tb = xterm + 64 * wg + 2 * t;
+    float racc[8][2], mid[8][2], acc[32], small[32];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-        float znrm = 0.0f;
-        for (int k0 = 0; k0 < d; k0 += RT_BK) {
-            rt_load_tile(X, n, d, r0, k0, Xs);
-            rt_load_tile(Z, m, d, c0, k0, Zs);
-            __syncthreads();
-            if (t < RT_BM) {
-                if (c0 == 0) {
+        for (int p = 0; p < 2; ++p) racc[j][p] = mid[j][p] = 0.0f;
 #pragma unroll
-                    for (int k = 0; k < RT_BK; ++k)
-                        xnrm = fmaf(Xs[k][t], Xs[k][t], xnrm);
+    for (int i = 0; i < 32; ++i) acc[i] = small[i] = 0.0f;
+
+    for (int it = 0; it < ntz; ++it) {
+        rts_cp_wait<0>();
+        __syncthreads();   // tile it has landed; the products of it - 1 are done
+        rts_split_rows(Zhi, Zlo, zterm, raw, m - it * MV_TZ, d, MV_TZ, sh,
+                       KIND, c, tid, MV_THREADS);
+        rts_fence_split();
+        __syncthreads();   // the split tile is ready; raw is free
+        if (it + 1 < ntz)
+            rts_load_flat(raw, Z, m, d, (it + 1) * MV_TZ, MV_TZ, vec, tid,
+                          MV_THREADS);
+        rts_cp_commit();
+
+        rts_wgmma_tile(acc, small, zhi, zlo, zslab, xhi, xlo, xslab, ksteps);
+
+        float vz[2], ta[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int zl = 16 * warp + 8 * h + g;
+            const int z = it * MV_TZ + zl;
+            vz[h] = z < m ? __ldg(v + z) : 0.0f;
+            ta[h] = zterm[zl];
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+                const float tbj = tb[8 * j + p];
+                float part = 0.0f;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int i = 4 * j + 2 * h + p;
+                    part = fmaf(rts_kval<KIND>(acc[i], ta[h], tbj, c2, gamma,
+                                               degree, coef0),
+                                vz[h], part);
                 }
-            } else if (t < RT_BM + RT_BN) {
-#pragma unroll
-                for (int k = 0; k < RT_BK; ++k)
-                    znrm = fmaf(Zs[k][t - RT_BM], Zs[k][t - RT_BM], znrm);
+                mid[j][p] += part;
             }
+        if (it % 32 == 31) {
 #pragma unroll
-            for (int k = 0; k < RT_BK; ++k) {
-                float a[4], c[4];
+            for (int j = 0; j < 8; ++j)
 #pragma unroll
-                for (int i = 0; i < 4; ++i) a[i] = Xs[k][ty + 16 * i];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) c[j] = Zs[k][tx + 16 * j];
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j)
-                        acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
-            }
-            __syncthreads();
+                for (int p = 0; p < 2; ++p) {
+                    racc[j][p] += mid[j][p];
+                    mid[j][p] = 0.0f;
+                }
         }
-        if (t < RT_BM) {
-            if (c0 == 0) xn[t] = xnrm;
-        } else if (t < RT_BM + RT_BN) {
-            const int c = c0 + t - RT_BM;
-            zn[t - RT_BM] = znrm;
-            vs[t - RT_BM] = c < m ? v[c] : 0.0f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const float kv = rt_transform(acc[i][j], xn[ty + 16 * i],
-                                              zn[tx + 16 * j], kind, gamma,
-                                              degree, coef0);
-                rowacc[i] = fmaf(kv, vs[tx + 16 * j], rowacc[i]);
-            }
-        __syncthreads();   // zn / vs are rewritten by the next column tile
     }
+    rts_cp_wait<0>();
+    __syncthreads();   // raw is free for the warps' sums
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float s = rt_rowsum16(rowacc[i]);
-        const int r = r0 + ty + 16 * i;
-        if (tx == 0 && r < n) out[r] = s;
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+            float s = racc[j][p] + mid[j][p];
+            s += __shfl_xor_sync(0xffffffffu, s, 4);
+            s += __shfl_xor_sync(0xffffffffu, s, 8);
+            s += __shfl_xor_sync(0xffffffffu, s, 16);
+            if (g == 0) red[warp * MV_TN + 64 * wg + 8 * j + 2 * t + p] = s;
+        }
+    __syncthreads();
+    if (tid < MV_TN && x0 + tid < n)
+        out[x0 + tid] = (red[tid] + red[MV_TN + tid])
+                        + (red[2 * MV_TN + tid] + red[3 * MV_TN + tid]);
+}
+
+static bool mv_attr = false;
+
+static cudaError_t mv_setup() {   // once, outside the per-launch path
+    void (*fns[3])(const float*, const float*, const float*, const float*,
+                   float*, int, int, int, long long, long long, long long,
+                   float, int, float) = {kernel_matvec_kernel<KIND_LINEAR>,
+                                         kernel_matvec_kernel<KIND_POLY>,
+                                         kernel_matvec_kernel<KIND_RBF>};
+    for (auto fn : fns) {
+        cudaError_t err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, MV_SMEM_MAX);
+        if (err != cudaSuccess) return err;
     }
+    mv_attr = true;
+    return cudaSuccess;
 }
 
 extern "C" int rt_kernel_matvec(const float* X, const float* Z,
-                                const float* v, float* out, int batch, int n,
+                                const float* v, const float* shift, float* out,
+                                int batch, int n,
                                 int m, int d, long long sxb, long long szb,
                                 long long svb, int kind, float gamma,
                                 int degree, float coef0, void* stream) {
     if (batch == 0 || n == 0) return 0;
-    dim3 grid((n + RT_BM - 1) / RT_BM, batch);
-    kernel_matvec_kernel<<<grid, RT_THREADS, 0, (cudaStream_t)stream>>>(
-        X, Z, v, out, n, m, d, sxb, szb, svb, kind, gamma, degree, coef0);
+    if (d < 1 || kind < KIND_LINEAR || kind > KIND_RBF
+        || (kind == KIND_RBF && shift == nullptr))
+        return RTS_REFUSED;
+    const size_t smem = mv_smem(d);
+    if (smem > MV_SMEM_MAX) return RTS_REFUSED;
+    cudaError_t err;
+    if (!mv_attr && (err = mv_setup()) != cudaSuccess) return (int)err;
+    dim3 grid((n + MV_TN - 1) / MV_TN, batch);
+    cudaStream_t s = (cudaStream_t)stream;
+#define MV_LAUNCH(K)                                                          \
+    kernel_matvec_kernel<K><<<grid, MV_THREADS, smem, s>>>(                   \
+        X, Z, v, shift, out, n, m, d, sxb, szb, svb, gamma, degree, coef0)
+    if (kind == KIND_RBF) MV_LAUNCH(KIND_RBF);
+    else if (kind == KIND_POLY) MV_LAUNCH(KIND_POLY);
+    else MV_LAUNCH(KIND_LINEAR);
+#undef MV_LAUNCH
     return (int)cudaGetLastError();
 }

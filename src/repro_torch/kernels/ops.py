@@ -7,11 +7,15 @@ are allocated with ``torch.empty`` and the kernels run on the current
 stream.  ``LAUNCHES`` counts, per kernel, the launches made by the
 wrappers (a plain integer, added to where the kernel is launched and
 nowhere else), so a run can show that its path went through the kernels.
+A launch recorded into a CUDA graph runs only when the graph is replayed:
+``recording()`` takes such launches out of ``LAUNCHES`` and
+``add_launches`` puts them back once a replay.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -30,6 +34,27 @@ FLASH_HEAD_DIMS = (64, 128, 256)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph capture: yields a dict that, on exit, holds the
+    launches the wrappers made inside (the graph's launches a replay), and
+    takes them out of ``LAUNCHES``, since a capture runs nothing."""
+    before = dict(LAUNCHES)
+    captured: Dict[str, int] = {}
+    try:
+        yield captured
+    finally:
+        for name in LAUNCHES:
+            captured[name] = LAUNCHES[name] - before[name]
+            LAUNCHES[name] = before[name]
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Count ``times`` replays of a graph holding ``counts`` launches."""
+    for name, k in counts.items():
+        LAUNCHES[name] += k * times
 
 
 def _no_policy(compute_dtype) -> None:
@@ -66,8 +91,14 @@ def _check_cuda(*ts: torch.Tensor) -> None:
             raise ValueError("the CUDA kernels take contiguous tensors")
 
 
-def _run(name: str, *args) -> None:
+_REFUSED = 20000    # RTS_REFUSED of csrc/rbf_tile.cuh: nothing launched
+
+
+def _run(name: str, *args, refused: str = "") -> None:
     err = build.kernel_fn(name)(*args)
+    if err == _REFUSED:
+        raise ValueError(refused or f"CUDA kernel {name} does not take these "
+                                    "inputs")
     if err != 0:
         what = (f"CUresult {err - 10000} (a TMA tensor map was refused)"
                 if err >= 10000 else f"cudaError {err}")
@@ -76,6 +107,21 @@ def _run(name: str, *args) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def split_shift(Y: torch.Tensor, kernel) -> Optional[torch.Tensor]:
+    """The vector the split-TF32 kernels subtract from both operands of an
+    rbf kernel: the mean of the kept operand's rows, (..., m, d) -> (...,
+    d), contiguous (K depends on x - z alone, and the Gram expansion then
+    cancels between smaller numbers).  None for linear and poly, which the
+    kernels do not shift."""
+    if kernel.kind != "rbf":
+        return None
+    return Y.mean(dim=-2).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def kernel_matrix(X: torch.Tensor, Y: torch.Tensor, kernel,
@@ -107,7 +153,8 @@ def kernel_matrix(X: torch.Tensor, Y: torch.Tensor, kernel,
 def kernel_matvec(X: torch.Tensor, Z: torch.Tensor, v: torch.Tensor, kernel,
                   compute_dtype=None) -> torch.Tensor:
     """out = K(X, Z) @ v without materialising K: (n, d), (m, d), (m,) ->
-    (n,), or batched (b, n, d), (b, m, d), (b, m) -> (b, n)."""
+    (n,), or batched (b, n, d), (b, m, d), (b, m) -> (b, n).  The CUDA
+    kernel (split-TF32 on the tensor cores) takes d <= 128."""
     _no_policy(compute_dtype)
     if X.dim() not in (2, 3) or Z.dim() != X.dim() or v.dim() != X.dim() - 1:
         raise ValueError(f"kernel_matvec shapes {tuple(X.shape)}, "
@@ -126,9 +173,11 @@ def kernel_matvec(X: torch.Tensor, Z: torch.Tensor, v: torch.Tensor, kernel,
         raise ValueError(f"kernel_matvec batch {b} too large")
     out = torch.empty((b, n), device=X.device, dtype=torch.float32)
     if b and n:
+        shift = split_shift(Zb, kernel)
         _run("kermatvec", Xb.data_ptr(), Zb.data_ptr(), vb.data_ptr(),
-             out.data_ptr(), b, n, m, d, n * d, m * d, m, *_params(kernel),
-             _stream(X))
+             _ptr(shift), out.data_ptr(), b, n, m, d, n * d, m * d, m,
+             *_params(kernel), _stream(X),
+             refused=f"kernel_matvec takes d <= 128, got {d}")
         LAUNCHES["kernel_matvec"] += 1
     return out if X.dim() == 3 else out[0]
 
@@ -144,7 +193,9 @@ def cd_column_update(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
                      w: torch.Tensor, kernel, compute_dtype=None
                      ) -> torch.Tensor:
     """dg = y * (K(X, Xb) @ w): X (n, d), y (n,), Xb (B, d), w (B,) -> (n,),
-    B <= 256.  The (n, B) kernel block never reaches device memory."""
+    B <= 256.  The (n, B) kernel block never reaches device memory.  The
+    CUDA kernel (split-TF32 on the tensor cores) keeps the split Xb in
+    shared memory: d <= 149 at B <= 64, d <= 72 at B = 256."""
     _no_policy(compute_dtype)
     if (X.dim() != 2 or Xb.dim() != 2 or y.shape != X.shape[:1]
             or w.shape != Xb.shape[:1] or X.shape[1] != Xb.shape[1]):
@@ -158,16 +209,14 @@ def cd_column_update(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
     B = Xb.shape[0]
     if B > MAX_CD_BLOCK:
         raise ValueError(f"cd_column_update takes B <= {MAX_CD_BLOCK}, got {B}")
-    dpad = -(-d // 16) * 16
-    bp = 64 if B <= 64 else (128 if B <= 128 else 256)   # padded block width
-    if (dpad + 2) * bp * 4 > 200 * 1024:
-        raise ValueError(f"cd_column_update: Xb ({B}, {d}) does not fit in "
-                         "shared memory")
     out = torch.empty(n, device=X.device, dtype=torch.float32)
     if n:
+        shift = split_shift(Xb, kernel)
         _run("cd_update", X.data_ptr(), y.data_ptr(), Xb.data_ptr(),
-             w.data_ptr(), out.data_ptr(), n, B, d, *_params(kernel),
-             _stream(X))
+             w.data_ptr(), _ptr(shift), out.data_ptr(), n, B, d,
+             *_params(kernel), _stream(X),
+             refused=f"cd_column_update: Xb ({B}, {d}) does not fit in "
+                     "shared memory")
         LAUNCHES["cd_column_update"] += 1
     return out
 

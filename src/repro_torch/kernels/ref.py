@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the hand-written kernels (their oracles).
 
-They repeat the arithmetic of ``csrc/*.cu`` with PyTorch operators and are
-what the ``ops`` wrappers run for a tensor on the CPU.  The RBF form is the
-Gram expansion ``exp(-gamma * max(|x|^2 + |y|^2 - 2 x.y, 0))``.  Leading
-batch dimensions broadcast like ``torch.matmul``.
+They repeat the arithmetic of ``csrc/*.cu`` with PyTorch operators (in
+plain f32) and are what the ``ops`` wrappers run for a tensor on the CPU.
+The RBF form is the Gram expansion ``exp(-gamma * max(|x|^2 + |y|^2 -
+2 x.y, 0))``.  Leading batch dimensions broadcast like ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -32,14 +32,90 @@ def kmeans_assign_ref(X, Xm, W, s, *, gamma=1.0):
     return torch.argmin(scores, dim=-1), scores
 
 
+def _shifted(X, Y, kind):
+    """(X - mu, Y - mu) with mu the mean of Y's rows, for rbf (as the
+    cd_column_update and kernel_matvec kernels do: K depends on x - y
+    alone, and the Gram expansion then cancels between smaller numbers);
+    unchanged for linear and poly."""
+    if kind != "rbf":
+        return X, Y
+    mu = Y.float().mean(dim=-2, keepdim=True)
+    return X.float() - mu, Y.float() - mu
+
+
 def cd_column_update_ref(X, y, Xb, w, *, kind="rbf", gamma=1.0, degree=3,
                          coef0=0.0):
-    k = kermat_ref(X, Xb, kind=kind, gamma=gamma, degree=degree, coef0=coef0)
+    k = kermat_ref(*_shifted(X, Xb, kind), kind=kind, gamma=gamma,
+                   degree=degree, coef0=coef0)
     return y * (k @ w)
 
 
 def kernel_matvec_ref(X, Z, v, *, kind="rbf", gamma=1.0, degree=3, coef0=0.0):
-    k = kermat_ref(X, Z, kind=kind, gamma=gamma, degree=degree, coef0=coef0)
+    k = kermat_ref(*_shifted(X, Z, kind), kind=kind, gamma=gamma,
+                   degree=degree, coef0=coef0)
+    return (k @ v.float()[..., None])[..., 0]
+
+
+# --- split-TF32 (the arithmetic of csrc/cd_update.cu and csrc/kermatvec.cu) --
+#
+# x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both rounded to
+# nearest with ties away from zero (cvt.rna.tf32.f32); x.z is taken as
+# lo_x.hi_z + hi_x.lo_z + hi_x.hi_z on the tensor cores with f32
+# accumulation.  The RBF form is exp2(min(2c g - c|x|^2 - c|z|^2, 0)) with
+# c = gamma log2(e) and the norms of the unsplit f32 values, after both
+# operands are shifted by the mean of the second one's rows (K depends on
+# x - z alone; ``ops.split_shift``).  The functions
+# below emulate that arithmetic for the tests; nothing on the main path
+# runs them.  ``passes=1`` keeps hi_x.hi_z alone (1xTF32), the control that
+# must miss the reference's tolerance.
+
+def tf32_rna(x):
+    """Round float32 to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero: add 0x1000 to the bit pattern and clear its low 13
+    bits (``cvt.rna.tf32.f32``)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x):
+    """(hi, lo) with hi = tf32(x) and lo = tf32(x - hi)."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x.float() - hi)
+
+
+def dot_tf32_emul(X, Y, passes=3):
+    """X Y^T in split-TF32 (``passes=3``) or 1xTF32 (``passes=1``)."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes is 1 or 3, got {passes}")
+    xh, xl = split_tf32(X)
+    yh, yl = split_tf32(Y)
+    if passes == 1:
+        return xh @ yh.mT
+    return xl @ yh.mT + xh @ yl.mT + xh @ yh.mT
+
+
+def kermat_tf32_emul(X, Y, *, kind="rbf", gamma=1.0, degree=3, coef0=0.0,
+                     passes=3):
+    X, Y = _shifted(X, Y, kind)
+    g = dot_tf32_emul(X, Y, passes)
+    if kind == "linear":
+        return g
+    if kind == "poly":
+        return (gamma * g + coef0) ** degree
+    c = gamma * math.log2(math.e)
+    ax = -c * torch.sum(X.float() ** 2, -1)[..., :, None]
+    bz = -c * torch.sum(Y.float() ** 2, -1)[..., None, :]
+    return torch.exp2(torch.clamp(2 * c * g + (ax + bz), max=0.0))
+
+
+def cd_column_update_tf32_emul(X, y, Xb, w, *, passes=3, **kw):
+    """Plain emulation of the ``cd_column_update`` kernel's arithmetic."""
+    return y * (kermat_tf32_emul(X, Xb, passes=passes, **kw) @ w)
+
+
+def kernel_matvec_tf32_emul(X, Z, v, *, passes=3, **kw):
+    """Plain emulation of the ``kernel_matvec`` kernel's arithmetic."""
+    k = kermat_tf32_emul(X, Z, passes=passes, **kw)
     return (k @ v.float()[..., None])[..., 0]
 
 

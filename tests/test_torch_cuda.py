@@ -7,8 +7,9 @@ also runs on a GPU machine without them:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances are the reference's Pallas-vs-oracle ones: kernel_matrix 2e-5,
-kernel_matvec and cd_column_update 2e-4, flash_attention 2e-5 in float32
-and 3e-2 for bfloat16 inputs; plain f32 with TF32 off.  The bf16 flash
+kernel_matvec and cd_column_update 2e-4 (their kernels run split-TF32 on
+the tensor cores, the plain versions f32 with TF32 off), flash_attention
+2e-5 in float32 and 3e-2 for bfloat16 inputs.  The bf16 flash
 kernel (tensor cores, p rounded to bf16) is also held to the bound derived
 from bf16's unit roundoff, |o - o_plain| <= 2^-7 |o_plain| + 2^-8
 softmax(s).|v| + 1e-4 elementwise (``ref.flash_bf16_share``).
@@ -17,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import gramop
+from repro_torch.core import solver as S
 from repro_torch.core.kernels import Kernel
 from repro_torch.kernels import build, ops, ref
 
@@ -272,3 +275,133 @@ def test_cuda_flash_bf16_kernel_uses_tensor_cores(cuda_device):
             if "flash_attention_bf16_kernel" in fn}
     assert len(bf16) == 3, counts
     assert all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in bf16.values()), bf16
+
+
+# (kernel, d) of the split-TF32 kernels' sweeps: poly at d = 17 (see CASES);
+# rbf at gamma = 0.1, where K between uniform rows at d = 54 is about 0.4
+# (at gamma = 4 it is about e^-36 off the diagonal, too small to check)
+SPLIT_KINDS = [(dict(kind="rbf", gamma=0.1), 54), (KINDS[1], 17),
+               (KINDS[2], 54)]
+SPLIT_IDS = [f"{kw['kind']}-d{d}" for kw, d in SPLIT_KINDS]
+
+
+def _rows(rng, shape, device):
+    return torch.tensor(rng.uniform(size=shape), dtype=torch.float32,
+                        device=device)
+
+
+def _assert_split_close(got, want):
+    """got within the reference's 2e-4 of want, where want is far above
+    that tolerance (so a kernel that returns zeros fails)."""
+    assert float(want.abs().max()) > 100 * 2e-4
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 256])
+@pytest.mark.parametrize("kw,d", SPLIT_KINDS, ids=SPLIT_IDS)
+def test_cuda_cd_column_update_split_tf32(cuda_device, kw, d, B):
+    """The split-TF32 cd_column_update against its plain version at a
+    ragged n (no multiple of the 128-row tile) and every block width class,
+    to the reference's 2e-4; two launches give identical bits.  Xb is
+    taken from X's rows, as the solver's working set is."""
+    rng = np.random.default_rng(B + d)
+    kern = Kernel(**kw)
+    X = _rows(rng, (1337, d), cuda_device)
+    Xb = X[torch.from_numpy(rng.choice(1337, B, replace=False))].contiguous()
+    y = torch.sign(torch.tensor(rng.standard_normal(1337), dtype=torch.float32,
+                                device=cuda_device))
+    w = torch.tensor(rng.standard_normal(B), dtype=torch.float32,
+                     device=cuda_device)
+    before = ops.LAUNCHES["cd_column_update"]
+    got = ops.cd_column_update(X, y, Xb, w, kern)
+    again = ops.cd_column_update(X, y, Xb, w, kern)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cd_column_update"] == before + 2
+    _assert_split_close(got, ref.cd_column_update_ref(X, y, Xb, w,
+                                                      **_rkw(kern)))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,d", SPLIT_KINDS, ids=SPLIT_IDS)
+def test_cuda_kernel_matvec_split_tf32_batched(cuda_device, kw, d):
+    """The split-TF32 kernel_matvec, batched (3 items), at ragged n and m
+    (no multiples of the 128-row and 64-row tiles), to the reference's
+    2e-4; two launches give identical bits.  Z holds X's rows among
+    others, as the n x n gradient's does."""
+    rng = np.random.default_rng(d)
+    kern = Kernel(**kw)
+    X = _rows(rng, (3, 301, d), cuda_device)
+    Z = torch.cat([_rows(rng, (3, 810, d), cuda_device), X], dim=1)
+    v = torch.tensor(rng.standard_normal((3, 1111)), dtype=torch.float32,
+                     device=cuda_device)
+    before = ops.LAUNCHES["kernel_matvec"]
+    got = ops.kernel_matvec(X, Z, v, kern)
+    again = ops.kernel_matvec(X, Z, v, kern)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["kernel_matvec"] == before + 2
+    _assert_split_close(got, ref.kernel_matvec_ref(X, Z, v, **_rkw(kern)))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_cuda_split_kernels_refuse_what_does_not_fit(cuda_device):
+    """Shapes past the split-TF32 kernels' shared memory (kernel_matvec at
+    d = 129, cd_column_update at B = 256 and d = 80) raise ValueError and
+    launch nothing."""
+    kern = Kernel("rbf", gamma=1.0)
+    ones = lambda *shape: torch.ones(*shape, device=cuda_device)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="kernel_matvec takes d"):
+        ops.kernel_matvec(ones(10, 129), ones(20, 129), ones(20), kern)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.cd_column_update(ones(10, 80), ones(10), ones(256, 80), ones(256),
+                             kern)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cd_update", "kermatvec"])
+def test_cuda_split_kernels_use_tensor_cores(cuda_device, name):
+    """The built library's kernels hold tensor-core MMA instructions in
+    their SASS: HGMMA (wgmma) in kernel_matvec's, HMMA (mma.sync) in
+    cd_column_update's."""
+    counts = build.sass_counts(name, ("HGMMA", "HMMA"))
+    assert counts, name
+    assert all(c["HGMMA"] + c["HMMA"] > 0 for c in counts.values()), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol,max_iters", [(1e-3, 150), (0.3, 400)],
+                         ids=["to-cap", "converges"])
+def test_cuda_graphed_level0_matches_eager(cuda_device, tol, max_iters):
+    """The level-0 block CD replayed as a CUDA graph against the eager loop
+    on the card, n = 8192: bit-identical alpha, grad, iters and pg_max, and
+    the same kernel launches (one cd_column_update a step run)."""
+    rng = np.random.default_rng(7)
+    X = _rows(rng, (8192, 54), cuda_device)
+    y = torch.sign(torch.tensor(rng.standard_normal(8192), dtype=torch.float32,
+                                device=cuda_device))
+    op = gramop.GramOperator(Xd=X, s=y, kernel=Kernel("rbf", gamma=1.0),
+                             use_kernels=True)
+    out, launches = {}, {}
+    for graph in (False, True):
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        out[graph] = S.solve_box_qp_op(op, 8.0, tol=tol, max_iters=max_iters,
+                                       graph=graph)
+        torch.cuda.synchronize()
+        launches[graph] = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    for field in S.SolveResult._fields:
+        assert torch.equal(getattr(out[False], field),
+                           getattr(out[True], field)), field
+    assert launches[False] == launches[True]
+    iters = int(out[True].iters)
+    steps = launches[True]["cd_column_update"]
+    assert launches[True]["kernel_matvec"] == 1
+    if iters == max_iters:
+        assert steps == iters
+    else:
+        assert iters <= steps < iters + S.SYNC_EVERY
