@@ -50,6 +50,15 @@ def covtype_like(rng: np.random.Generator, n: int
                             label_noise=0.02)
 
 
+def webspam_like(rng: np.random.Generator, n: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Stand-in for webspam: 254-dim, 10 modes per class, spread 0.10, with
+    about 70% of coordinates zeroed (webspam's features are sparse)."""
+    X, y = gaussian_mixture(rng, n, d=254, modes_per_class=10, spread=0.10)
+    keep = rng.uniform(size=X.shape) < 0.3
+    return (X * keep).astype(np.float32), y
+
+
 def train_test_split(rng: np.random.Generator, X, y, test_frac: float = 0.2):
     """Random split; the training side gets round(n * (1 - test_frac))."""
     n = X.shape[0]

@@ -33,22 +33,29 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# C signatures of the entry points (every one returns cudaGetLastError()).
+# C signatures of the entry points (each returns 0 or a code ops._run reads).
 SIGNATURES = {
     "kermat": ("rt_kermat",
-               [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _F, _I, _F, _P]),
+               [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _F, _I, _F,
+                _P]),
     "kermatvec": ("rt_kernel_matvec",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _F,
-                   _I, _F, _P]),
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I,
+                   _F, _I, _F, _P]),
     "cd_update": ("rt_cd_column_update",
-                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _P]),
+                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
+                   _P]),
     "kmeans_assign": ("rt_kmeans_assign",
-                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                       _P]),
+                      [_P, _P, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _F, _P]),
+    "kmeans_assign_scratch": ("rt_kmeans_assign_scratch",
+                              [_I, _I, _I, _I, ctypes.POINTER(_L)]),
     "flash_attention": ("rt_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
                          _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _P]),
 }
+
+# entry points that live in another entry's source
+_SOURCE_OF = {"kmeans_assign_scratch": "kmeans_assign"}
 
 _lock = threading.Lock()
 _loaded: Dict[str, object] = {}
@@ -69,7 +76,8 @@ def nvcc_path() -> str:
     return _cuda_tool("nvcc")
 
 
-def sass_counts(name: str, opcodes=("HGMMA", "UTMALDG")) -> Dict[str, Dict[str, int]]:
+def sass_counts(name: str, opcodes=("HGMMA", "UTMALDG")
+                ) -> Dict[str, Dict[str, int]]:
     """How many of each SASS opcode every kernel function of the built
     ``csrc/<name>.cu`` holds, from ``cuobjdump -sass``: {function: {opcode:
     count}}."""
@@ -133,11 +141,12 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
 
 
 def kernel_fn(name: str):
-    """The ctypes entry point of ``csrc/<name>.cu``, building it if needed."""
+    """The ctypes entry point ``name`` of ``csrc/<name>.cu`` (or of the
+    source ``_SOURCE_OF`` names), building it if needed."""
     with _lock:
         fn = _loaded.get(name)
         if fn is None:
-            lib = build_all()[name]
+            lib = build_all()[_SOURCE_OF.get(name, name)]
             symbol, argtypes = SIGNATURES[name]
             fn = getattr(ctypes.CDLL(str(lib)), symbol)
             fn.argtypes = argtypes

@@ -22,6 +22,15 @@
 // in registers and contracts it with w; a quad's xor shuffles finish each
 // row's sum inside the warp, so the result does not depend on scheduling.
 // B > 64 takes 64 columns a pass over the staged tile.
+//
+// Where the split Xb and the ring do not fit in shared memory (d > 149 at
+// B <= 64, d > 72 at B = 256), a second form (cd_column_update_wide_kernel)
+// streams the depth in slices of RTS_DC columns: for every tile, column pass
+// and slice the block stages that slice of Xb split in fragment order, and
+// each warp loads its rows' slice straight from device memory and splits it
+// in registers; the products of the slices run into the same accumulators.
+// It takes every d >= 1 at every B <= 256 (the caller's plan,
+// ops.split_tile_plan, picks the form).
 #include "rbf_tile.cuh"
 
 #define CD_THREADS 256
@@ -144,6 +153,100 @@ cd_column_update_kernel(const float* __restrict__ X, const float* __restrict__ y
     rts_cp_wait<0>();
 }
 
+// the streamed form's shared memory: an Xb slice, (term, w) pairs, norms,
+// the slice's shift
+static size_t cd_wide_smem(int nch) {
+    const int bp = nch * CD_CW;
+    return (size_t)CD_CW / 8 * 8 * 32 * sizeof(float4)
+           + (size_t)bp / 2 * sizeof(float4)
+           + (size_t)(bp + RTS_DC) * sizeof(float);
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(CD_THREADS, 2)
+cd_column_update_wide_kernel(const float* __restrict__ X,
+                             const float* __restrict__ y,
+                             const float* __restrict__ Xb,
+                             const float* __restrict__ w,
+                             const float* __restrict__ shift,
+                             float* __restrict__ out, int n, int B, int d,
+                             int nch, float gamma, int degree, float coef0) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int bp = nch * CD_CW, kp = rts_kp(d);
+    float4* Bf = (float4*)smem;                   // an Xb slice, fragment order
+    float4* tw = Bf + CD_CW / 8 * 8 * 32;         // (bp / 2,), as above
+    float* bnrm = (float*)(tw + bp / 2);          // (bp,) norms
+    float* sh = bnrm + bp;                        // (RTS_DC,) slice shift
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const float c = gamma * 1.4426950408889634f, c2 = 2.0f * c;
+    rts_row_norms(bnrm, bp, Xb, shift, B, d, 0, KIND, warp, CD_WARPS);
+    __syncthreads();
+    for (int q = tid; q < bp / 2; q += CD_THREADS)
+        tw[q] = make_float4(rts_norm_term(bnrm[2 * q], KIND, c),
+                            rts_norm_term(bnrm[2 * q + 1], KIND, c),
+                            2 * q < B ? w[2 * q] : 0.0f,
+                            2 * q + 1 < B ? w[2 * q + 1] : 0.0f);
+
+    const int ntiles = (n + CD_TM - 1) / CD_TM;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int r = tile * CD_TM + 16 * warp + g;   // rows r and r + 8
+        float rs[2] = {0.0f, 0.0f};
+        for (int ch = 0; ch < nch; ++ch) {
+            float acc[1][8][4], small[1][8][4], an[2] = {0.0f, 0.0f};
+            rts_zero(acc, small);
+            for (int k0 = 0; k0 < kp; k0 += RTS_DC) {
+                __syncthreads();   // the last slice's fragments are read
+                rts_stage_sh(sh, shift, d, k0, KIND);
+                __syncthreads();
+                rts_stage_b64<CD_CW, CD_THREADS>(Bf, Xb, sh, B, d, ch * CD_CW,
+                                                 k0, tid);
+                __syncthreads();
+#pragma unroll 2
+                for (int s = 0; s < RTS_DC / 8; ++s) {   // zeros past d
+                    float a[4];
+                    rts_pair(a[0], a[2], X, sh, n, d, r, k0, 8 * s + t);
+                    rts_pair(a[1], a[3], X, sh, n, d, r + 8, k0, 8 * s + t);
+                    an[0] = fmaf(a[0], a[0], fmaf(a[2], a[2], an[0]));
+                    an[1] = fmaf(a[1], a[1], fmaf(a[3], a[3], an[1]));
+                    uint32_t ahi[1][4], alo[1][4], bf[8][4];
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) rts_split(a[q], ahi[0][q], alo[0][q]);
+                    rts_load_b<8>(bf, Bf, s, RTS_DC / 8);
+                    rts_mma3<1, 8>(acc, small, ahi, alo, bf);
+                }
+            }
+            rts_finish(acc, small);
+            float ta[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                an[h] += __shfl_xor_sync(0xffffffffu, an[h], 1);
+                an[h] += __shfl_xor_sync(0xffffffffu, an[h], 2);
+                ta[h] = rts_norm_term(an[h], KIND, c);
+            }
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const float4 q = tw[(ch * CD_CW + 8 * j + 2 * t) / 2];
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const float k0v = rts_kval<KIND>(acc[0][j][2 * h], ta[h], q.x,
+                                                     c2, gamma, degree, coef0);
+                    const float k1v = rts_kval<KIND>(acc[0][j][2 * h + 1], ta[h],
+                                                     q.y, c2, gamma, degree, coef0);
+                    rs[h] = fmaf(k1v, q.w, fmaf(k0v, q.z, rs[h]));
+                }
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+            rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+            if (t == 0 && r + 8 * h < n) out[r + 8 * h] = y[r + 8 * h] * rs[h];
+        }
+    }
+}
+
 static int cd_sms = 0;
 static bool cd_attr = false;
 static int cd_occ_key[16], cd_occ_val[16], cd_occ_len = 0;
@@ -183,29 +286,28 @@ static cudaError_t cd_setup() {   // once, outside the per-launch path
     return cudaSuccess;
 }
 
+// stages: the caller's plan (ops.split_tile_plan): 3 or 2 ring stages for
+// the resident form, 0 for the streamed one.
 extern "C" int rt_cd_column_update(const float* X, const float* y,
                                    const float* Xb, const float* w,
                                    const float* shift, float* out,
-                                   int n, int B, int d, int kind, float gamma,
-                                   int degree, float coef0, void* stream) {
+                                   int n, int B, int d, int stages,
+                                   int kind, float gamma, int degree,
+                                   float coef0, void* stream) {
     if (n == 0) return 0;
     if (B < 1 || B > 256 || d < 1 || kind < KIND_LINEAR || kind > KIND_RBF
         || (kind == KIND_RBF && shift == nullptr))
         return RTS_REFUSED;
     const int nch = (B + CD_CW - 1) / CD_CW;
-    // two blocks an SM where they fit (with three stages, else two), else
-    // one block with three stages, else two
-    int stages;
-    if (2 * (cd_smem(nch, d, 3) + 1024) <= CD_SMEM_SM) stages = 3;
-    else if (2 * (cd_smem(nch, d, 2) + 1024) <= CD_SMEM_SM) stages = 2;
-    else if (cd_smem(nch, d, 3) <= CD_SMEM_MAX) stages = 3;
-    else if (cd_smem(nch, d, 2) <= CD_SMEM_MAX) stages = 2;
-    else return RTS_REFUSED;
-    const size_t smem = cd_smem(nch, d, stages);
+    const bool wide = stages == 0;
+    if (!wide && ((stages != 2 && stages != 3)
+                  || cd_smem(nch, d, stages) > CD_SMEM_MAX))
+        return RTS_REFUSED;
+    const size_t smem = wide ? cd_wide_smem(nch) : cd_smem(nch, d, stages);
     cudaError_t err;
     if (!cd_attr && (err = cd_setup()) != cudaSuccess) return (int)err;
-    int occ;
-    if ((err = cd_occupancy(smem, &occ)) != cudaSuccess) return (int)err;
+    int occ = 2;   // the streamed form: two blocks an SM (its launch bound)
+    if (!wide && (err = cd_occupancy(smem, &occ)) != cudaSuccess) return (int)err;
     const int ntiles = (n + CD_TM - 1) / CD_TM;
     const int grid = ntiles < occ * cd_sms ? ntiles : occ * cd_sms;
     const int vec = rts_vec(X);
@@ -214,9 +316,19 @@ extern "C" int rt_cd_column_update(const float* X, const float* y,
     cd_column_update_kernel<K><<<grid, CD_THREADS, smem, s>>>(                \
         X, y, Xb, w, shift, out, n, B, d, nch, stages, vec, gamma, degree,  \
         coef0)
-    if (kind == KIND_RBF) CD_LAUNCH(KIND_RBF);
-    else if (kind == KIND_POLY) CD_LAUNCH(KIND_POLY);
-    else CD_LAUNCH(KIND_LINEAR);
+#define CD_WIDE(K)                                                            \
+    cd_column_update_wide_kernel<K><<<grid, CD_THREADS, smem, s>>>(           \
+        X, y, Xb, w, shift, out, n, B, d, nch, gamma, degree, coef0)
+    if (wide) {
+        if (kind == KIND_RBF) CD_WIDE(KIND_RBF);
+        else if (kind == KIND_POLY) CD_WIDE(KIND_POLY);
+        else CD_WIDE(KIND_LINEAR);
+    } else {
+        if (kind == KIND_RBF) CD_LAUNCH(KIND_RBF);
+        else if (kind == KIND_POLY) CD_LAUNCH(KIND_POLY);
+        else CD_LAUNCH(KIND_LINEAR);
+    }
 #undef CD_LAUNCH
+#undef CD_WIDE
     return (int)cudaGetLastError();
 }

@@ -377,6 +377,26 @@ __device__ __forceinline__ void rts_wgmma(float (&d)[32], uint64_t da,
         : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x N, f32) += A . B with A (64 x 8 tf32) in registers, in the A
+// fragment of mma.sync.m16n8k8 (a warp's 16 rows: (g, t), (g + 8, t), (g, t
+// + 4), (g + 8, t + 4)), and B (N rows, K-major) in shared memory; D's
+// register i of a lane holds row g + 8 ((i / 2) % 2) of the warp's 16,
+// column 8 (i / 4) + 2 t + i % 2.  N = 64 (kmeans_assign's K W).
+template <int N> struct RtsWgA;
+template <> struct RtsWgA<64> {
+    static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+            "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+            "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+            : RTS_F16(d, 0), RTS_F16(d, 16)
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+    }
+};
+
 // Keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous wgmma that owns it.
 template <int R>
@@ -389,26 +409,39 @@ __device__ __forceinline__ void rts_reg_fence(float (&d)[R]) {
 // acc on return (small is scratch).  a_hi, a_lo: the shared addresses of
 // its A rows (slabs a_slab bytes apart); b_hi, b_lo those of its B rows
 // (slabs b_slab bytes apart).  Issues 3 wgmma a k8 step and waits.
+// The products of one depth slab run into acc and small, which start from
+// zero when first (else they carry the earlier slabs' sums).
 template <int R>
-__device__ __forceinline__ void rts_wgmma_tile(float (&acc)[R], float (&small)[R],
+__device__ __forceinline__ void rts_wgmma_slab(float (&acc)[R], float (&small)[R],
                                                uint32_t a_hi, uint32_t a_lo,
                                                int a_slab, uint32_t b_hi,
                                                uint32_t b_lo, int b_slab,
-                                               int ksteps) {
+                                               int ksteps, bool first) {
     rts_reg_fence(acc);
     rts_reg_fence(small);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
     for (int kk = 0; kk < ksteps; ++kk) {
         const uint32_t ka = (kk / 4) * a_slab + (kk % 4) * 32;
         const uint32_t kb = (kk / 4) * b_slab + (kk % 4) * 32;
-        rts_wgmma(small, rts_desc(a_lo + ka), rts_desc(b_hi + kb), kk > 0);
-        rts_wgmma(acc, rts_desc(a_hi + ka), rts_desc(b_hi + kb), kk > 0);
+        const int keep = kk > 0 || !first;
+        rts_wgmma(small, rts_desc(a_lo + ka), rts_desc(b_hi + kb), keep);
+        rts_wgmma(acc, rts_desc(a_hi + ka), rts_desc(b_hi + kb), keep);
         rts_wgmma(small, rts_desc(a_hi + ka), rts_desc(b_lo + kb), 1);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     rts_reg_fence(acc);
     rts_reg_fence(small);
+}
+
+template <int R>
+__device__ __forceinline__ void rts_wgmma_tile(float (&acc)[R], float (&small)[R],
+                                               uint32_t a_hi, uint32_t a_lo,
+                                               int a_slab, uint32_t b_hi,
+                                               uint32_t b_lo, int b_slab,
+                                               int ksteps) {
+    rts_wgmma_slab(acc, small, a_hi, a_lo, a_slab, b_hi, b_lo, b_slab, ksteps,
+                   true);
 #pragma unroll
     for (int i = 0; i < R; ++i) acc[i] += small[i];
 }
@@ -425,4 +458,229 @@ __device__ __forceinline__ float rts_kval(float g, float ta, float tb, float c2,
 #pragma unroll 1
     for (int e = 0; e < degree; ++e) r *= base;
     return r;
+}
+
+// ------------------------------------------------- streamed depth slices --
+//
+// Past the width that fits in shared memory whole, an operand is split one
+// depth slice of RTS_DC columns at a time, straight from device memory, and
+// the products of the slices run into the same accumulators: x.z is summed
+// over the slices in order, k ascending, as over whole rows.  The norms
+// still cover whole rows (rts_row_norms, or partial sums per slice added up
+// in a fixed order).  These routines take every d >= 1.
+
+#define RTS_DC 64   // columns of a depth slice (8 k8 steps, two 128-byte slabs)
+
+// x[k] less the shift (rbf) of row r of a row-major (rows, d) matrix; 0 past
+// the matrix and past d.
+__device__ __forceinline__ float rts_at(const float* __restrict__ src,
+                                        const float* __restrict__ shift,
+                                        int rows, int d, int r, int k,
+                                        int kind) {
+    if (r >= rows || k >= d) return 0.0f;
+    const float x = __ldg(src + (size_t)r * d + k);
+    return kind == KIND_RBF ? x - __ldg(shift + k) : x;
+}
+
+// The shift of the slice [k0, k0 + RTS_DC) into shared memory (0 past d,
+// and for linear and poly); the slice staging routines below read it.
+__device__ __forceinline__ void rts_stage_sh(float* sh,
+                                             const float* __restrict__ shift,
+                                             int d, int k0, int kind) {
+    for (int j = threadIdx.x; j < RTS_DC; j += blockDim.x)
+        sh[j] = kind == KIND_RBF && k0 + j < d ? shift[k0 + j] : 0.0f;
+}
+
+// nrm[r] = |x - shift|^2 (f32, unsplit) of rows [r0, r0 + R) of a row-major
+// (rows, d) matrix, 0 past it: a warp a row, lanes over strided columns,
+// summed by a fixed xor pattern.  Warp w of nwarps.
+__device__ __forceinline__ void rts_row_norms(float* nrm, int R,
+                                              const float* __restrict__ src,
+                                              const float* __restrict__ shift,
+                                              int rows, int d, int r0, int kind,
+                                              int warp, int nwarps) {
+    const int lane = threadIdx.x % 32;
+    for (int r = warp; r < R; r += nwarps) {
+        float s = 0.0f;
+        if (r0 + r < rows)
+            for (int k = lane; k < d; k += 32) {
+                const float x = rts_at(src, shift, rows, d, r0 + r, k, kind);
+                s = fmaf(x, x, s);
+            }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (lane == 0) nrm[r] = s;
+    }
+}
+
+// x[r][k0 + j] and x[r][k0 + j + 4] less sh[j], sh[j + 4] (0 past the
+// matrix and past d) through one row pointer; src lies in device memory
+// or (rows landed by rts_load_flat) in shared memory.
+__device__ __forceinline__ void rts_pair(float& a, float& b,
+                                         const float* __restrict__ src,
+                                         const float* sh, int rows, int d,
+                                         int r, int k0, int j) {
+    const bool in = r < rows;
+    const float* p = src + (size_t)(in ? r : 0) * d + k0 + j;
+    a = in && k0 + j < d ? p[0] - sh[j] : 0.0f;
+    b = in && k0 + j + 4 < d ? p[4] - sh[j + 4] : 0.0f;
+}
+
+// rts_stage_a64 also sums each row's |x - shift|^2 (f32, of the unsplit
+// values): a quad's four lanes hold the row's eight columns of a k8 step,
+// summed by a fixed xor pattern, and lane t = 0 adds them, k8 step by k8
+// step, into the warp's partial pn[warp R + row], which only it writes
+// (zeroed by it at the first slice).  A row's norm is then
+// rts_norm_of(pn, ...): the warps' partials summed in order.
+__device__ __forceinline__ float rts_quad_sum(float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float rts_norm_of(const float* pn, int R, int nwarps,
+                                             int r) {
+    float s = 0.0f;
+    for (int w = 0; w < nwarps; ++w) s += pn[w * R + r];
+    return s;
+}
+
+// The A operand (m16n8k8, row-major) of rows [r0, r0 + R) (R a multiple of
+// 16) and columns [k0, k0 + RTS_DC), less the slice's shift sh
+// (rts_stage_sh), split and in fragment order: Ahi[(mb 8 + s) 32 + lane] =
+// hi of (x[g][k], x[g + 8][k], x[g][k + 4], x[g + 8][k + 4]) of rows 16 mb +
+// ..., k = k0 + 8 s + t, and Alo the same of lo; a lane reads its fragment
+// with one 16-byte load of each, free of bank conflicts.  NTHR threads
+// share the work, four items a thread in flight at once (16 loads); the
+// rows' norms go to pn (NTHR / 32 x R floats, see above; none if null).
+template <int R, int NTHR>
+__device__ __forceinline__ void rts_stage_a64(float4* Ahi, float4* Alo,
+                                              float* pn,
+                                              const float* __restrict__ src,
+                                              const float* sh, int rows, int d,
+                                              int r0, int k0, bool first,
+                                              int tid) {
+    constexpr int PER = (R / 16) * 8 * 32 / NTHR, BATCH = PER < 4 ? PER : 4;
+    const int lane = tid % 32;
+    float* mine = pn == nullptr ? nullptr : pn + (tid / 32) * R + lane / 4;
+    if (mine != nullptr && first && lane % 4 == 0)
+        for (int r = 0; r < R; r += 8) mine[r] = 0.0f;
+#pragma unroll 1
+    for (int q0 = 0; q0 < PER; q0 += BATCH) {
+        float x[BATCH][4];
+#pragma unroll
+        for (int q = 0; q < BATCH; ++q) {
+            const int e = tid + (q0 + q) * NTHR;
+            const int r = r0 + 16 * (e / 256) + lane / 4;
+            const int j = 8 * ((e / 32) % 8) + lane % 4;
+            rts_pair(x[q][0], x[q][2], src, sh, rows, d, r, k0, j);
+            rts_pair(x[q][1], x[q][3], src, sh, rows, d, r + 8, k0, j);
+        }
+#pragma unroll
+        for (int q = 0; q < BATCH; ++q) {
+            const int e = tid + (q0 + q) * NTHR;
+            if (mine != nullptr) {
+                const float a = rts_quad_sum(
+                    fmaf(x[q][2], x[q][2], x[q][0] * x[q][0]));
+                const float b = rts_quad_sum(
+                    fmaf(x[q][3], x[q][3], x[q][1] * x[q][1]));
+                if (lane % 4 == 0) {
+                    mine[16 * (e / 256)] += a;
+                    mine[16 * (e / 256) + 8] += b;
+                }
+            }
+            uint32_t h[4], l[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) rts_split(x[q][i], h[i], l[i]);
+            Ahi[e] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                                 __uint_as_float(h[2]), __uint_as_float(h[3]));
+            Alo[e] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                                 __uint_as_float(l[2]), __uint_as_float(l[3]));
+        }
+    }
+}
+
+// The B operand of rows [r0, r0 + R) (R a multiple of 8) and columns [k0,
+// k0 + RTS_DC), less sh, split in rts_stage_b's fragment order
+// (Bf[(nb 8 + s) 32 + lane], s < 8), eight items a thread in flight.
+template <int R, int NTHR>
+__device__ __forceinline__ void rts_stage_b64(float4* Bf,
+                                              const float* __restrict__ src,
+                                              const float* sh, int rows, int d,
+                                              int r0, int k0, int tid) {
+    constexpr int PER = (R / 8) * 8 * 32 / NTHR, BATCH = PER < 8 ? PER : 8;
+    const int lane = tid % 32;
+#pragma unroll 1
+    for (int q0 = 0; q0 < PER; q0 += BATCH) {
+        float x[BATCH][2];
+#pragma unroll
+        for (int q = 0; q < BATCH; ++q) {
+            const int e = tid + (q0 + q) * NTHR;
+            rts_pair(x[q][0], x[q][1], src, sh, rows, d,
+                     r0 + 8 * (e / 256) + lane / 4, k0,
+                     8 * ((e / 32) % 8) + lane % 4);
+        }
+#pragma unroll
+        for (int q = 0; q < BATCH; ++q) {
+            uint32_t h0, l0, h1, l1;
+            rts_split(x[q][0], h0, l0);
+            rts_split(x[q][1], h1, l1);
+            Bf[tid + (q0 + q) * NTHR] = make_float4(
+                __uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0),
+                __uint_as_float(l1));
+        }
+    }
+}
+
+// The A fragments (hi, lo) of a warp's m16 block mb for k8 step s of a
+// slice staged by rts_stage_a64.
+__device__ __forceinline__ void rts_load_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                           const float4* Ahi, const float4* Alo,
+                                           int mb, int s) {
+    const int i = (mb * 8 + s) * 32 + threadIdx.x % 32;
+    const float4 h = Ahi[i], l = Alo[i];
+    hi[0] = __float_as_uint(h.x); hi[1] = __float_as_uint(h.y);
+    hi[2] = __float_as_uint(h.z); hi[3] = __float_as_uint(h.w);
+    lo[0] = __float_as_uint(l.x); lo[1] = __float_as_uint(l.y);
+    lo[2] = __float_as_uint(l.z); lo[3] = __float_as_uint(l.w);
+}
+
+// Split rows [0, R) (R a multiple of 8) of src (a row-major (rows, d)
+// matrix in device memory), columns [k0, k0 + RTS_DC), less the slice's
+// shift sh, into the swizzled hi and lo tiles of rts_split_rows (two slabs
+// of R rows).  With nrm, each row's partial |x - shift|^2 over the slice is
+// stored (first) or added to nrm[r], four threads a row summing with a
+// fixed xor pattern.  Threads tid of nthr (whole warps).
+__device__ __forceinline__ void rts_split_slice(unsigned char* hi,
+                                                unsigned char* lo, float* nrm,
+                                                const float* __restrict__ src,
+                                                const float* sh, int rows,
+                                                int d, int R, int k0,
+                                                bool first, int tid, int nthr) {
+    const int q = tid % 4, slab = R * 128;
+    for (int r = tid / 4; r < R; r += nthr / 4) {
+        const bool in = r < rows;
+        const float* row = src + (size_t)(in ? r : 0) * d + k0;
+        float s = 0.0f;
+#pragma unroll 2
+        for (int j = 0; j < 4; ++j) {
+            const int ch = q + 4 * j;
+            uint32_t h[4], l[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int c = 4 * ch + e;
+                const float x = in && k0 + c < d ? __ldg(row + c) - sh[c] : 0.0f;
+                s = fmaf(x, x, s);
+                rts_split(x, h[e], l[e]);
+            }
+            const int off = (ch / 8) * slab + r * 128 + (((ch % 8) ^ (r % 8)) << 4);
+            *(uint4*)(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+            *(uint4*)(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+        }
+        if (nrm != nullptr) {
+            s += __shfl_xor_sync(0xffffffffu, s, 1);
+            s += __shfl_xor_sync(0xffffffffu, s, 2);
+            if (q == 0) nrm[r] = first ? s : nrm[r] + s;
+        }
+    }
 }

@@ -14,8 +14,9 @@ A launch recorded into a CUDA graph runs only when the graph is replayed:
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import math
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,6 +30,10 @@ _KIND = {"linear": 0, "poly": 1, "rbf": 2}
 _MAX_GRID_YZ = 65535
 MAX_CD_BLOCK = 256
 FLASH_HEAD_DIMS = (64, 128, 256)
+# Mirrors of csrc constants, for the CPU-testable ``split_tile_plan``:
+SPLIT_SLICE = 64            # RTS_DC (rbf_tile.cuh): a streamed depth slice
+_SMEM_BLOCK = 232448        # MV_SMEM_MAX, CD_SMEM_MAX: shared memory a block
+_SMEM_SM = 233472           # CD_SMEM_SM: shared memory of an SM
 
 
 def reset_launches() -> None:
@@ -124,10 +129,75 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+class SplitPlan(NamedTuple):
+    """How a split-TF32 kernel takes a shape.  ``stages`` > 0: the resident
+    form, which keeps the kept operand split whole in shared memory, with a
+    cp.async ring of that many stages (1 for kernel_matvec's single Z
+    stage, 2 or 3 for cd_column_update).  0: the streamed form, which
+    splits both operands one depth slice of ``SPLIT_SLICE`` columns at a
+    time."""
+    stages: int
+
+
+def _kp(d: int) -> int:                 # rts_kp (rbf_tile.cuh)
+    return -(-d // 8) * 8
+
+
+def _stage(rows: int, d: int) -> int:   # rts_stage: floats of a raw stage
+    return -(-rows * d // 4) * 4
+
+
+def _mv_smem(d: int) -> int:            # mv_smem (kermatvec.cu)
+    kp = _kp(d)
+    raw = max(_stage(64, d), 4 * 128)
+    return (1024 + 2 * (128 + 64) * (-(-kp // 32)) * 128
+            + (128 + 64 + kp + 4 + raw) * 4)
+
+
+def _cd_smem(nch: int, d: int, stages: int) -> int:   # cd_smem (cd_update.cu)
+    bp, kp = 64 * nch, _kp(d)
+    return bp * kp * 8 + (3 * bp + kp + 4) * 4 + stages * _stage(128, d) * 4
+
+
+def split_tile_plan(d: int, B: Optional[int] = None) -> SplitPlan:
+    """The form a split-TF32 kernel takes feature width ``d`` in:
+    ``kernel_matvec`` (``B`` None) or ``cd_column_update`` with a block of
+    ``B`` columns.  The resident form keeps the split tile whole in shared
+    memory (``kernel_matvec`` d <= 128; ``cd_column_update`` d <= 149 at
+    B <= 64, d <= 72 at B = 256); past that the streamed form takes every
+    d.  So both take every d >= 1 (and B from 1 to 256).  Raises
+    ValueError on anything else.  The wrappers pass the plan to the C entry
+    points, which refuse (20000) a plan whose shared memory does not fit."""
+    if int(d) < 1:
+        raise ValueError(f"the split-TF32 kernels take d >= 1, got {d}")
+    if B is None:
+        return SplitPlan(1 if _mv_smem(d) <= _SMEM_BLOCK else 0)
+    if not 1 <= int(B) <= MAX_CD_BLOCK:
+        raise ValueError(f"cd_column_update takes 1 <= B <= {MAX_CD_BLOCK}, "
+                         f"got {B}")
+    nch = -(-int(B) // 64)
+    # two blocks an SM where they fit (with three stages, else two), else
+    # one block with three stages, else two (rt_cd_column_update's choice)
+    for blocks, stages in ((2, 3), (2, 2), (1, 3), (1, 2)):
+        smem = _cd_smem(nch, d, stages)
+        if (2 * (smem + 1024) <= _SMEM_SM if blocks == 2
+                else smem <= _SMEM_BLOCK):
+            return SplitPlan(stages)
+    return SplitPlan(0)
+
+
+def _same_tensor(X: torch.Tensor, Y: torch.Tensor) -> bool:
+    return (X.data_ptr() == Y.data_ptr() and X.shape == Y.shape
+            and X.stride() == Y.stride())
+
+
 def kernel_matrix(X: torch.Tensor, Y: torch.Tensor, kernel,
                   compute_dtype=None) -> torch.Tensor:
     """K(X, Y): (n, d) x (m, d) -> (n, m), or batched (b, n, d) x (b, m, d)
-    -> (b, n, m) in one launch."""
+    -> (b, n, m) in one launch.  The CUDA kernel runs split-TF32 on the
+    tensor cores, any d; given the same tensor twice it computes the tiles
+    on and above the diagonal and mirrors them, so K(X, X) is symmetric bit
+    for bit."""
     _no_policy(compute_dtype)
     if X.dim() not in (2, 3) or Y.dim() != X.dim():
         raise ValueError(f"kernel_matrix takes two 2-D or two 3-D tensors, "
@@ -140,12 +210,16 @@ def kernel_matrix(X: torch.Tensor, Y: torch.Tensor, kernel,
     Xb, Yb = (X, Y) if X.dim() == 3 else (X[None], Y[None])
     b, n, d = Xb.shape
     m = Yb.shape[1]
-    if b > _MAX_GRID_YZ or -(-m // 64) > _MAX_GRID_YZ:
-        raise ValueError(f"kermat grid too large for batch {b}, m {m}")
+    if b > _MAX_GRID_YZ or -(-n // 64) * -(-m // 64) >= 2 ** 31:
+        raise ValueError(f"kermat grid too large for batch {b}, n {n}, m {m}")
     out = torch.empty((b, n, m), device=X.device, dtype=torch.float32)
     if b and n and m:
-        _run("kermat", Xb.data_ptr(), Yb.data_ptr(), out.data_ptr(), b, n, m,
-             d, n * d, m * d, *_params(kernel), _stream(X))
+        if d < 1:
+            raise ValueError(f"the kermat kernel takes d >= 1, got {d}")
+        shift = split_shift(Yb, kernel)
+        _run("kermat", Xb.data_ptr(), Yb.data_ptr(), _ptr(shift),
+             out.data_ptr(), b, n, m, d, n * d, m * d,
+             int(_same_tensor(X, Y)), *_params(kernel), _stream(X))
         LAUNCHES["kermat"] += 1
     return out if X.dim() == 3 else out[0]
 
@@ -154,7 +228,8 @@ def kernel_matvec(X: torch.Tensor, Z: torch.Tensor, v: torch.Tensor, kernel,
                   compute_dtype=None) -> torch.Tensor:
     """out = K(X, Z) @ v without materialising K: (n, d), (m, d), (m,) ->
     (n,), or batched (b, n, d), (b, m, d), (b, m) -> (b, n).  The CUDA
-    kernel (split-TF32 on the tensor cores) takes d <= 128."""
+    kernel (split-TF32 on the tensor cores) takes every d, in the form
+    ``split_tile_plan(d)`` names."""
     _no_policy(compute_dtype)
     if X.dim() not in (2, 3) or Z.dim() != X.dim() or v.dim() != X.dim() - 1:
         raise ValueError(f"kernel_matvec shapes {tuple(X.shape)}, "
@@ -173,11 +248,12 @@ def kernel_matvec(X: torch.Tensor, Z: torch.Tensor, v: torch.Tensor, kernel,
         raise ValueError(f"kernel_matvec batch {b} too large")
     out = torch.empty((b, n), device=X.device, dtype=torch.float32)
     if b and n:
+        plan = split_tile_plan(d)
         shift = split_shift(Zb, kernel)
         _run("kermatvec", Xb.data_ptr(), Zb.data_ptr(), vb.data_ptr(),
              _ptr(shift), out.data_ptr(), b, n, m, d, n * d, m * d, m,
-             *_params(kernel), _stream(X),
-             refused=f"kernel_matvec takes d <= 128, got {d}")
+             *plan, *_params(kernel), _stream(X),
+             refused=f"kernel_matvec refused d {d} with plan {plan}")
         LAUNCHES["kernel_matvec"] += 1
     return out if X.dim() == 3 else out[0]
 
@@ -194,8 +270,8 @@ def cd_column_update(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
                      ) -> torch.Tensor:
     """dg = y * (K(X, Xb) @ w): X (n, d), y (n,), Xb (B, d), w (B,) -> (n,),
     B <= 256.  The (n, B) kernel block never reaches device memory.  The
-    CUDA kernel (split-TF32 on the tensor cores) keeps the split Xb in
-    shared memory: d <= 149 at B <= 64, d <= 72 at B = 256."""
+    CUDA kernel (split-TF32 on the tensor cores) takes every d, in the form
+    ``split_tile_plan(d, B)`` names."""
     _no_policy(compute_dtype)
     if (X.dim() != 2 or Xb.dim() != 2 or y.shape != X.shape[:1]
             or w.shape != Xb.shape[:1] or X.shape[1] != Xb.shape[1]):
@@ -207,28 +283,38 @@ def cd_column_update(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
     _check_cuda(X, y, Xb, w)
     n, d = X.shape
     B = Xb.shape[0]
-    if B > MAX_CD_BLOCK:
-        raise ValueError(f"cd_column_update takes B <= {MAX_CD_BLOCK}, got {B}")
+    plan = split_tile_plan(d, B)
     out = torch.empty(n, device=X.device, dtype=torch.float32)
     if n:
         shift = split_shift(Xb, kernel)
         _run("cd_update", X.data_ptr(), y.data_ptr(), Xb.data_ptr(),
-             w.data_ptr(), _ptr(shift), out.data_ptr(), n, B, d,
+             w.data_ptr(), _ptr(shift), out.data_ptr(), n, B, d, *plan,
              *_params(kernel), _stream(X),
-             refused=f"cd_column_update: Xb ({B}, {d}) does not fit in "
-                     "shared memory")
+             refused=f"cd_column_update refused Xb ({B}, {d}) with plan "
+                     f"{plan}")
         LAUNCHES["cd_column_update"] += 1
     return out
 
 
 def _assign_layout(k: int) -> Tuple[int, int]:
-    """(columns a thread, padded k) of the ``kmeans_assign`` kernel: a block
-    covers 16 x group score columns a pass, group a power of two <= 16."""
+    """(n8 blocks of score columns a pass, padded k) of the ``kmeans_assign``
+    kernel: a warp keeps 16 rows by 8 x group scores in registers, group a
+    power of two <= 16, and k is padded to a multiple of 8 x group; more
+    centres take further passes over Xm."""
     group = 1
-    while group < 16 and 16 * group < k:
+    while group < 16 and 8 * group < k:
         group *= 2
-    width = 16 * group
+    width = 8 * group
     return group, -(-k // width) * width
+
+
+def _assign_scratch(m: int, d: int, kp: int, group: int) -> int:
+    """Floats of the ``kmeans_assign`` kernel's scratch (Xm and W split once
+    into fragment order), as its C module, which alone defines the layout,
+    gives them."""
+    floats = ctypes.c_longlong()
+    _run("kmeans_assign_scratch", m, d, kp, group, ctypes.byref(floats))
+    return floats.value
 
 
 def kmeans_assign(X: torch.Tensor, Xm: torch.Tensor, W: torch.Tensor,
@@ -238,8 +324,11 @@ def kmeans_assign(X: torch.Tensor, Xm: torch.Tensor, W: torch.Tensor,
     (assign (n,) int64, scores (n, k)), ``scores = -2 K(X, Xm) @ W + s``
     and ``assign`` its row argmin (lowest index on ties).  The (n, m)
     cross-kernel never reaches device memory.  K(x, x) is left out (the
-    caller adds it).  k is padded to the kernel's column layout with zero
-    W columns and s = +inf."""
+    caller adds it).  The CUDA kernel pads k to its column layout
+    (``_assign_layout``) with zero W columns and s = +inf, runs both
+    products in split-TF32 on the tensor cores (both operands of K shifted
+    by the mean of Xm's rows), takes any d, and splits Xm and W once into
+    a scratch buffer (``_assign_scratch``)."""
     if (X.dim() != 2 or Xm.dim() != 2 or W.dim() != 2 or s.dim() != 1
             or X.shape[1] != Xm.shape[1] or W.shape[0] != Xm.shape[0]
             or s.shape[0] != W.shape[1] or W.shape[1] == 0):
@@ -252,15 +341,18 @@ def kmeans_assign(X: torch.Tensor, Xm: torch.Tensor, W: torch.Tensor,
     n, d = X.shape
     m, k = W.shape
     group, kp = _assign_layout(k)
-    if kp > k:
-        W = torch.nn.functional.pad(W, (0, kp - k))
-        s = torch.nn.functional.pad(s, (0, kp - k), value=float("inf"))
     scores = torch.empty((n, k), device=X.device, dtype=torch.float32)
     assign = torch.empty(n, device=X.device, dtype=torch.int64)
     if n:
+        if d < 1:
+            raise ValueError(f"the kmeans_assign kernel takes d >= 1, got {d}")
+        shift = Xm.mean(dim=0) if m else torch.zeros(d, device=X.device)
+        floats = _assign_scratch(m, d, kp, group)
+        scratch = torch.empty(floats, device=X.device, dtype=torch.float32)
         _run("kmeans_assign", X.data_ptr(), Xm.data_ptr(), W.data_ptr(),
-             s.data_ptr(), scores.data_ptr(), assign.data_ptr(), n, m, d, k,
-             kp, group, float(gamma), _stream(X))
+             s.data_ptr(), shift.data_ptr(), scratch.data_ptr(), floats,
+             scores.data_ptr(), assign.data_ptr(), n, m, d, k, kp, group,
+             float(gamma), _stream(X))
         LAUNCHES["kmeans_assign"] += 1
     return assign, scores
 

@@ -56,18 +56,21 @@ def kernel_matvec_ref(X, Z, v, *, kind="rbf", gamma=1.0, degree=3, coef0=0.0):
     return (k @ v.float()[..., None])[..., 0]
 
 
-# --- split-TF32 (the arithmetic of csrc/cd_update.cu and csrc/kermatvec.cu) --
+# --- split-TF32 (the arithmetic of every SVM kernel in csrc/) --------------
 #
 # x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both rounded to
 # nearest with ties away from zero (cvt.rna.tf32.f32); x.z is taken as
 # lo_x.hi_z + hi_x.lo_z + hi_x.hi_z on the tensor cores with f32
-# accumulation.  The RBF form is exp2(min(2c g - c|x|^2 - c|z|^2, 0)) with
-# c = gamma log2(e) and the norms of the unsplit f32 values, after both
-# operands are shifted by the mean of the second one's rows (K depends on
-# x - z alone; ``ops.split_shift``).  The functions
-# below emulate that arithmetic for the tests; nothing on the main path
-# runs them.  ``passes=1`` keeps hi_x.hi_z alone (1xTF32), the control that
-# must miss the reference's tolerance.
+# accumulation, the two small products in their own sum.  The RBF form is
+# exp2(min(2c g - c|x|^2 - c|z|^2, 0)) with c = gamma log2(e) and the norms
+# of the unsplit f32 values, after both operands are shifted by the mean of
+# the second one's rows (K depends on x - z alone; ``ops.split_shift``).
+# Past the width their shared memory holds whole, the kernels sum the
+# products over depth slices of ``slab`` columns in order
+# (``ops.split_tile_plan``).  The functions below emulate that arithmetic
+# for the tests; nothing on the main path runs them.  ``passes=1`` keeps
+# hi_x.hi_z alone (1xTF32), the control that must miss the reference's
+# tolerance.
 
 def tf32_rna(x):
     """Round float32 to TF32 (10 explicit mantissa bits), to nearest with
@@ -83,21 +86,31 @@ def split_tf32(x):
     return hi, tf32_rna(x.float() - hi)
 
 
-def dot_tf32_emul(X, Y, passes=3):
-    """X Y^T in split-TF32 (``passes=3``) or 1xTF32 (``passes=1``)."""
+def dot_tf32_emul(X, Y, passes=3, slab=None):
+    """X Y^T in split-TF32 (``passes=3``) or 1xTF32 (``passes=1``); with
+    ``slab``, the small products and hi.hi each summed over depth slices of
+    ``slab`` columns in order, then added."""
     if passes not in (1, 3):
         raise ValueError(f"passes is 1 or 3, got {passes}")
     xh, xl = split_tf32(X)
     yh, yl = split_tf32(Y)
     if passes == 1:
         return xh @ yh.mT
-    return xl @ yh.mT + xh @ yl.mT + xh @ yh.mT
+    if slab is None:
+        return xl @ yh.mT + xh @ yl.mT + xh @ yh.mT
+    small = big = 0.0
+    for k0 in range(0, X.shape[-1], slab):
+        k = slice(k0, k0 + slab)
+        small = small + (xl[..., k] @ yh[..., k].mT + xh[..., k] @ yl[..., k].mT)
+        big = big + xh[..., k] @ yh[..., k].mT
+    return small + big
 
 
 def kermat_tf32_emul(X, Y, *, kind="rbf", gamma=1.0, degree=3, coef0=0.0,
-                     passes=3):
+                     passes=3, slab=None):
+    """Plain emulation of the ``kermat`` kernel's arithmetic."""
     X, Y = _shifted(X, Y, kind)
-    g = dot_tf32_emul(X, Y, passes)
+    g = dot_tf32_emul(X, Y, passes, slab)
     if kind == "linear":
         return g
     if kind == "poly":
@@ -117,6 +130,18 @@ def kernel_matvec_tf32_emul(X, Z, v, *, passes=3, **kw):
     """Plain emulation of the ``kernel_matvec`` kernel's arithmetic."""
     k = kermat_tf32_emul(X, Z, passes=passes, **kw)
     return (k @ v.float()[..., None])[..., 0]
+
+
+def kmeans_assign_tf32_emul(X, Xm, W, s, *, gamma=1.0, passes=3,
+                            gram_passes=3, slab=None):
+    """Plain emulation of the ``kmeans_assign`` kernel's arithmetic: K from
+    the split Gram of X and Xm shifted by Xm's mean (``gram_passes``), then
+    K W with K and W split again (``passes``), scores ``-2 K W + s`` and
+    their row argmin.  Returns (assign, scores)."""
+    k = kermat_tf32_emul(X, Xm, kind="rbf", gamma=gamma, passes=gram_passes,
+                         slab=slab)
+    scores = -2.0 * dot_tf32_emul(k, W.float().mT, passes) + s.float()
+    return torch.argmin(scores, dim=-1), scores
 
 
 def _attention_probs(q, k, *, causal, q_offset):

@@ -7,8 +7,9 @@ also runs on a GPU machine without them:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances are the reference's Pallas-vs-oracle ones: kernel_matrix 2e-5,
-kernel_matvec and cd_column_update 2e-4 (their kernels run split-TF32 on
-the tensor cores, the plain versions f32 with TF32 off), flash_attention
+kernel_matvec and cd_column_update 2e-4, kmeans_assign 1e-4 on its scores
+(the SVM kernels run split-TF32 on the tensor cores, the plain versions
+f32 with TF32 off), flash_attention
 2e-5 in float32 and 3e-2 for bfloat16 inputs.  The bf16 flash
 kernel (tensor cores, p rounded to bf16) is also held to the bound derived
 from bf16's unit roundoff, |o - o_plain| <= 2^-7 |o_plain| + 2^-8
@@ -347,30 +348,172 @@ def test_cuda_kernel_matvec_split_tf32_batched(cuda_device, kw, d):
 
 @pytest.mark.cuda
 def test_cuda_split_kernels_refuse_what_does_not_fit(cuda_device):
-    """Shapes past the split-TF32 kernels' shared memory (kernel_matvec at
-    d = 129, cd_column_update at B = 256 and d = 80) raise ValueError and
-    launch nothing."""
+    """Shapes the split-TF32 kernels do not take (d = 0; cd_column_update
+    at B = 257) raise ValueError and launch nothing."""
     kern = Kernel("rbf", gamma=1.0)
     ones = lambda *shape: torch.ones(*shape, device=cuda_device)
     before = dict(ops.LAUNCHES)
-    with pytest.raises(ValueError, match="kernel_matvec takes d"):
-        ops.kernel_matvec(ones(10, 129), ones(20, 129), ones(20), kern)
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.cd_column_update(ones(10, 80), ones(10), ones(256, 80), ones(256),
+    with pytest.raises(ValueError, match="d >= 1"):
+        ops.kernel_matvec(ones(10, 0), ones(20, 0), ones(20), kern)
+    with pytest.raises(ValueError, match="d >= 1"):
+        ops.cd_column_update(ones(10, 0), ones(10), ones(64, 0), ones(64),
                              kern)
+    with pytest.raises(ValueError, match="B <= 256"):
+        ops.cd_column_update(ones(10, 80), ones(10), ones(257, 80), ones(257),
+                             kern)
+    with pytest.raises(ValueError, match="d >= 1"):
+        ops.kernel_matrix(ones(10, 0), ones(20, 0), kern)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == before
 
 
+def _wide_rbf(d):
+    """rbf at a gamma where K between uniform rows of width d is about 0.4."""
+    return Kernel("rbf", gamma=5.4 / d)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["cd_update", "kermatvec"])
+@pytest.mark.parametrize("d", [129, 254, 3072])
+def test_cuda_kernel_matvec_any_width(cuda_device, d):
+    """kernel_matvec past the resident form's d <= 128 (the streamed form,
+    ``split_tile_plan``) against its plain version, batched, at ragged n
+    and m, to the reference's 2e-4; two launches give identical bits."""
+    rng = np.random.default_rng(d)
+    kern = _wide_rbf(d)
+    assert ops.split_tile_plan(d).stages == 0
+    X = _rows(rng, (2, 301, d), cuda_device)
+    Z = torch.cat([_rows(rng, (2, 500, d), cuda_device), X], dim=1)
+    v = torch.tensor(rng.standard_normal((2, 801)), dtype=torch.float32,
+                     device=cuda_device)
+    got = ops.kernel_matvec(X, Z, v, kern)
+    again = ops.kernel_matvec(X, Z, v, kern)
+    torch.cuda.synchronize()
+    _assert_split_close(got, ref.kernel_matvec_ref(X, Z, v, **_rkw(kern)))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,d", [(64, 254), (256, 80), (256, 254), (64, 3072),
+                                 (256, 3072)])
+def test_cuda_cd_column_update_any_width(cuda_device, B, d):
+    """cd_column_update past the resident form (d > 149 at B = 64, d > 72 at
+    B = 256: the streamed form) against its plain version at a ragged n,
+    to the reference's 2e-4; two launches give identical bits."""
+    rng = np.random.default_rng(B + d)
+    kern = _wide_rbf(d)
+    assert ops.split_tile_plan(d, B).stages == 0
+    X = _rows(rng, (1337, d), cuda_device)
+    Xb = X[torch.from_numpy(rng.choice(1337, B, replace=False))].contiguous()
+    y = torch.sign(torch.tensor(rng.standard_normal(1337), dtype=torch.float32,
+                                device=cuda_device))
+    w = torch.tensor(rng.standard_normal(B), dtype=torch.float32,
+                     device=cuda_device)
+    got = ops.cd_column_update(X, y, Xb, w, kern)
+    again = ops.cd_column_update(X, y, Xb, w, kern)
+    torch.cuda.synchronize()
+    _assert_split_close(got, ref.cd_column_update_ref(X, y, Xb, w,
+                                                      **_rkw(kern)))
+    assert torch.equal(got, again)
+
+
+# (kernel, d) of the kermat sweep: every kind at the main path's d = 54 and
+# at webspam's d = 254, gammas scaled so that the values stay moderate
+KERMAT_CASES = [(dict(kind=kind, gamma=g * 54 / d, degree=3, coef0=1.0), d)
+                for d in (54, 254)
+                for kind, g in (("rbf", 0.1), ("poly", 0.16), ("linear", 1.0))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,d", KERMAT_CASES,
+                         ids=[f"{kw['kind']}-d{d}" for kw, d in KERMAT_CASES])
+def test_cuda_kermat_split_tf32(cuda_device, kw, d):
+    """The split-TF32 kermat against its plain version, batched (3 items)
+    at ragged n and m (no multiples of the 64-row tile, m no multiple of
+    4), to the reference's 2e-5; K(X, X) through the kernel is symmetric
+    bit for bit and matches too."""
+    rng = np.random.default_rng(d)
+    kern = Kernel(**kw)
+    X = _rows(rng, (3, 150, d), cuda_device)
+    Y = _rows(rng, (3, 203, d), cuda_device)
+    before = ops.LAUNCHES["kermat"]
+    got = ops.kernel_matrix(X, Y, kern)
+    sym = ops.kernel_matrix(Y, Y, kern)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["kermat"] == before + 2
+    for out, A, B in ((got, X, Y), (sym, Y, Y)):
+        torch.testing.assert_close(out, ref.kermat_ref(A, B, **_rkw(kern)),
+                                   rtol=2e-5, atol=2e-5)
+    assert torch.equal(sym, sym.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_assign_wide(cuda_device):
+    """The fused assignment at webspam's d = 254 (four depth slices) with
+    k = 256 (two column passes): scores to the reference's 1e-4,
+    assignments equal outside near-ties."""
+    rng = np.random.default_rng(3)
+    d, k = 254, 256
+    X = _rows(rng, (900, d), cuda_device)
+    Xm = X[torch.from_numpy(rng.choice(900, 400, replace=False))].contiguous()
+    lab = torch.tensor(rng.integers(0, k, 400), device=cuda_device)
+    H = torch.nn.functional.one_hot(lab, k).float()
+    W = (H / H.sum(0).clamp(min=1.0)).contiguous()
+    gamma = 5.4 / d
+    Kmm = ref.kermat_ref(Xm, Xm, kind="rbf", gamma=gamma)
+    s = torch.einsum("mk,mn,nk->k", W, Kmm, W)
+    s = torch.where(W.sum(0) <= 0, torch.inf, s).contiguous()
+    got_a, got_s = ops.kmeans_assign(X, Xm, W, s, gamma)
+    want_a, want_s = ref.kmeans_assign_ref(X, Xm, W, s, gamma=gamma)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want_s)
+    assert torch.equal(finite, torch.isfinite(got_s))
+    torch.testing.assert_close(got_s[finite], want_s[finite], rtol=0,
+                               atol=1e-4)
+    top2 = torch.topk(want_s, 2, dim=1, largest=False).values
+    clear = (top2[:, 1] - top2[:, 0]) >= 2e-4
+    assert torch.equal(got_a[clear], want_a[clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,k", [(400, 254, 256), (1000, 54, 4)])
+def test_cuda_kmeans_assign_refuses_short_scratch(cuda_device, m, d, k):
+    """The C entry refuses (and launches nothing for) a scratch buffer one
+    float4 shorter than the layout its module defines, and the wrapper
+    sizes the buffer from that same module."""
+    group, kp = ops._assign_layout(k)
+    floats = ops._assign_scratch(m, d, kp, group)
+    assert floats >= 2 * m * (d + kp)   # hi and lo of Xm and of W at least
+    dev = cuda_device
+    X, Xm = torch.rand(64, d, device=dev), torch.rand(m, d, device=dev)
+    W, s = torch.rand(m, k, device=dev), torch.rand(k, device=dev)
+    shift = Xm.mean(0)
+    scratch = torch.zeros(floats, device=dev)
+    scores = torch.full((64, k), -1.0, device=dev)
+    assign = torch.full((64,), -1, device=dev, dtype=torch.int64)
+    err = build.kernel_fn("kmeans_assign")(
+        X.data_ptr(), Xm.data_ptr(), W.data_ptr(), s.data_ptr(),
+        shift.data_ptr(), scratch.data_ptr(), floats - 4, scores.data_ptr(),
+        assign.data_ptr(), 64, m, d, k, kp, group, 0.1,
+        torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 20000
+    assert bool((scratch == 0).all() and (scores == -1).all()
+                and (assign == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cd_update", "kermatvec", "kermat",
+                                  "kmeans_assign"])
 def test_cuda_split_kernels_use_tensor_cores(cuda_device, name):
-    """The built library's kernels hold tensor-core MMA instructions in
-    their SASS: HGMMA (wgmma) in kernel_matvec's, HMMA (mma.sync) in
-    cd_column_update's."""
+    """The built library's product kernels hold tensor-core MMA
+    instructions in their SASS: HGMMA (wgmma) in kernel_matvec's and
+    kermat's, HMMA (mma.sync) in cd_column_update's and in kmeans_assign's
+    (with HGMMA too for k > 32); kmeans_assign_prep, which only splits Xm
+    and W into fragment order, runs no product."""
     counts = build.sass_counts(name, ("HGMMA", "HMMA"))
-    assert counts, name
-    assert all(c["HGMMA"] + c["HMMA"] > 0 for c in counts.values()), counts
+    products = {fn: c for fn, c in counts.items() if "_prep" not in fn}
+    assert products, name
+    assert all(c["HGMMA"] + c["HMMA"] > 0 for c in products.values()), counts
 
 
 @pytest.mark.cuda

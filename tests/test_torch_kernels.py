@@ -189,10 +189,31 @@ def test_kmeans_assign_matches_reference(n, m, k, d):
         np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
 
 
-@pytest.mark.parametrize("k,group,kp", [(1, 1, 16), (4, 1, 16), (16, 1, 16),
-                                        (17, 2, 32), (100, 8, 128),
-                                        (256, 16, 256), (300, 16, 512)])
+@pytest.mark.parametrize("k,group,kp", [(1, 1, 8), (4, 1, 8), (16, 2, 16),
+                                        (17, 4, 32), (100, 16, 128),
+                                        (256, 16, 256), (300, 16, 384)])
 def test_kmeans_assign_column_layout(k, group, kp):
-    """k is padded to the kernel's column layout (16 columns a thread
-    group), never to the TPU's 128 lanes."""
+    """k is padded to the kernel's column layout (8 x group columns a pass,
+    group n8 blocks of mma.sync, at most 16), never to the TPU's 128
+    lanes."""
     assert ops._assign_layout(k) == (group, kp)
+
+
+def test_webspam_like_shape_sparsity_labels():
+    """The port's webspam stand-in has the reference's structure: 254
+    columns in [0, 1], about 70% of them zeroed, labels +-1 from 10 modes a
+    class; and it matches the reference's generator in those statistics."""
+    from repro.data.synthetic import webspam_like as jwebspam
+    from repro_torch.data import webspam_like
+
+    import jax
+
+    X, y = webspam_like(np.random.default_rng(0), 4000)
+    assert X.shape == (4000, 254) and X.dtype == np.float32
+    assert y.shape == (4000,) and set(np.unique(y)) == {-1.0, 1.0}
+    assert 0.0 <= X.min() and X.max() <= 1.0
+    zero = float((X == 0).mean())
+    jX, jy = jwebspam(jax.random.PRNGKey(0), 4000)
+    jzero = float((np.asarray(jX) == 0).mean())
+    assert 0.68 <= zero <= 0.74 and abs(zero - jzero) < 0.02
+    assert 0.4 <= float((y > 0).mean()) <= 0.6

@@ -1,5 +1,6 @@
-"""The split-TF32 arithmetic of the cd_column_update and kernel_matvec CUDA
-kernels, emulated on the CPU and held to the JAX reference.
+"""The split-TF32 arithmetic of the SVM CUDA kernels (cd_column_update,
+kernel_matvec, kermat, kmeans_assign), emulated on the CPU and held to the
+JAX reference.
 
 The kernels form x.z on the tensor cores as lo_x.hi_z + hi_x.lo_z +
 hi_x.hi_z with x = hi + lo both rounded to TF32 (cvt.rna.tf32.f32), after
@@ -9,9 +10,14 @@ to the reference's kernels (interpret mode, as tests/test_kernels_pallas.py
 runs them) and plain versions at the reference's 2e-4 in the form
 |err| <= 2e-4 (1 + |ref|), at the kinds x widths of the CUDA tests and on
 covtype-like rows (d = 54, gamma = 1).  1xTF32 (hi_x.hi_z alone) is the
-control that must miss that tolerance on the covtype rows.  The level-0
-block CD's CUDA-graph switch and the launch bookkeeping around a capture
-are checked where they run on the CPU.
+control that must miss that tolerance on the covtype rows.  kermat is held
+to its reference's 2e-5 and kmeans_assign to 1e-4 on its scores (both of
+its products split: 1xTF32 on either misses), and the emulations that sum
+over depth slices as the streamed forms do at webspam's d = 254 to 2e-4.
+``ops.split_tile_plan``, which picks a kernel's form, is checked over
+every d up to the reference's 3072.  The level-0 block CD's CUDA-graph
+switch and the launch bookkeeping around a capture are checked where they
+run on the CPU.
 """
 import numpy as np
 import pytest
@@ -23,7 +29,8 @@ from repro.kernels import ref as jref
 from repro_torch.core import gramop
 from repro_torch.core import solver as S
 from repro_torch.core.kernels import Kernel
-from repro_torch.data import covtype_like
+from repro_torch.core.kkmeans import kernel_kmeans
+from repro_torch.data import covtype_like, webspam_like
 from repro_torch.kernels import ops, ref
 
 TOL = 2e-4
@@ -145,6 +152,134 @@ def test_one_pass_tf32_control_misses_tolerance(covtype_rows, which):
     needs."""
     name, emul, want = _covtype_cases(covtype_rows)[which]
     assert _share(emul(1).numpy(), want) > 1.0, name
+
+
+def _share_of(got, want, tol) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / (tol * (1.0 + np.abs(want)))).max())
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["split", "control-1xTF32"])
+def test_split_kermat_on_covtype_rows(covtype_rows, passes):
+    """kermat in split-TF32 (both operands shifted by the mean of Y's rows)
+    on 1,024 covtype rows against the reference's plain version, within its
+    2e-5 (``test_kernels_pallas.py``'s rtol = atol = 2e-5); 1xTF32 is the
+    control that misses it."""
+    X = covtype_rows[:1024]
+    want = jref.kermat_ref(X, X, kind="rbf", gamma=1.0)
+    got = ref.kermat_tf32_emul(*_t(X, X), kind="rbf", gamma=1.0,
+                               passes=passes)
+    share = _share_of(got.numpy(), want, 2e-5)
+    assert (share <= 1.0) if passes == 3 else (share > 1.0)
+
+
+def _assign_case(X, k):
+    """A k-means model on 1,000 covtype samples (kernel k-means, gamma = 1,
+    empty centres at s = +inf) and 2,000 points to assign."""
+    Xm, Xa = X[:1000], X[1000:3000]
+    Kmm = ref.kermat_ref(*_t(Xm, Xm), gamma=1.0)
+    _, W, s = kernel_kmeans(Kmm, k, torch.from_numpy(
+        np.random.default_rng(k).permutation(1000)))
+    s = torch.where(W.sum(0) <= 0, torch.inf, s)
+    return Xa, Xm, W.numpy(), s.numpy()
+
+
+@pytest.mark.parametrize("k", [256, 4])
+def test_split_kmeans_assign_on_covtype_rows(covtype_rows, k):
+    """kmeans_assign with both products in split-TF32 on covtype rows at the
+    level shape's k = 256 and the routing k = 4, against the reference's
+    plain version: scores within its 1e-4, argmins equal wherever the two
+    best scores are 2e-4 apart or more."""
+    Xa, Xm, W, s = _assign_case(covtype_rows, k)
+    want_a, want_s = jref.kmeans_assign_ref(Xa, Xm, W, s[None, :], gamma=1.0)
+    want_a, want_s = np.asarray(want_a), np.asarray(want_s)
+    got_a, got_s = ref.kmeans_assign_tf32_emul(*_t(Xa, Xm, W, s), gamma=1.0)
+    finite = np.isfinite(want_s)
+    assert (np.isfinite(got_s.numpy()) == finite).all()
+    assert np.abs(got_s.numpy()[finite] - want_s[finite]).max() <= 1e-4
+    top2 = np.sort(np.where(finite, want_s, np.inf), axis=1)[:, :2]
+    clear = top2[:, 1] - top2[:, 0] >= 2e-4
+    assert (got_a.numpy()[clear] == want_a[clear]).all()
+
+
+@pytest.mark.parametrize("k,which", [(256, "passes"), (4, "gram_passes")],
+                         ids=["k256-KW-1xTF32", "k4-gram-1xTF32"])
+def test_kmeans_assign_one_pass_control_misses(covtype_rows, k, which):
+    """The controls: 1xTF32 on K W misses 1e-4 at k = 256 (K near 1 is
+    summed over a cluster's samples), and 1xTF32 on the Gram misses it at
+    k = 4, so the kernel splits both products."""
+    Xa, Xm, W, s = _assign_case(covtype_rows, k)
+    want_s = np.asarray(jref.kmeans_assign_ref(Xa, Xm, W, s[None, :],
+                                               gamma=1.0)[1])
+    got_s = ref.kmeans_assign_tf32_emul(*_t(Xa, Xm, W, s), gamma=1.0,
+                                        **{which: 1})[1].numpy()
+    finite = np.isfinite(want_s)
+    assert np.abs(got_s[finite] - want_s[finite]).max() > 1e-4
+
+
+@pytest.fixture(scope="module")
+def webspam_rows():
+    X, _ = webspam_like(np.random.default_rng(2), 2600)
+    return X
+
+
+@pytest.mark.parametrize("which", ["cd_column_update", "kernel_matvec"])
+def test_split_slices_at_webspam_width_within_tolerance(webspam_rows, which):
+    """The streamed forms' arithmetic at webspam's d = 254 (summed over
+    depth slices of 64 columns in order, gamma 0.5 as the reference's
+    benchmarks use) against the reference's plain version within 2e-4.
+    The kept rows are among the others, as in a fit (at gamma 0.5 the
+    kernel between two webspam rows is mostly below 1e-6)."""
+    rng = np.random.default_rng(3)
+    rkw = dict(kind="rbf", gamma=0.5)
+    X = webspam_rows
+    if which == "cd_column_update":
+        Xc, Xb = X[:2000], X[:256]
+        y = np.sign(rng.standard_normal(2000)).astype(np.float32)
+        w = rng.standard_normal(256).astype(np.float32)
+        want = jref.cd_column_update_ref(Xc, y, Xb, w, **rkw)
+        got = ref.cd_column_update_tf32_emul(*_t(Xc, y, Xb, w),
+                                             slab=ops.SPLIT_SLICE, **rkw)
+    else:
+        Xq, Z = X[:500], X[:2000]
+        v = rng.standard_normal(2000).astype(np.float32)
+        want = jref.kernel_matvec_ref(Xq, Z, v, **rkw)
+        got = ref.kernel_matvec_tf32_emul(*_t(Xq, Z, v),
+                                          slab=ops.SPLIT_SLICE, **rkw)
+    assert float(np.abs(np.asarray(want)).max()) > 1e-2
+    assert _share(got.numpy(), want) <= 1.0
+
+
+@pytest.mark.parametrize("B", [None, 1, 2, 63, 64, 65, 128, 129, 200, 255,
+                               256], ids=lambda b: f"B{b}")
+def test_split_tile_plan_takes_every_width(B):
+    """``split_tile_plan`` gives a form for every d from 1 to 3072: the
+    resident one (the whole padded row, a ring of 1-3 stages whose shared
+    memory fits) where it fits, else the streamed one (64-column slices).
+    The resident form keeps its widths: kernel_matvec d <= 128,
+    cd_column_update d <= 149 at B <= 64 and d <= 72 at B = 256."""
+    widest = 0
+    for d in range(1, 3073):
+        plan = ops.split_tile_plan(d, B)
+        if plan.stages:
+            if B is None:
+                assert plan.stages == 1 and ops._mv_smem(d) <= ops._SMEM_BLOCK
+            else:
+                assert plan.stages in (2, 3)
+                assert ops._cd_smem(-(-B // 64), d, plan.stages) <= \
+                    ops._SMEM_BLOCK
+            widest = d
+        else:
+            assert plan == ops.SplitPlan(0)
+    if B is None or B <= 64 or B == 256:
+        assert widest == (128 if B is None else 149 if B <= 64 else 72)
+
+
+@pytest.mark.parametrize("d,B", [(0, None), (0, 64), (54, 0), (54, 257),
+                                 (-1, 1)])
+def test_split_tile_plan_refuses(d, B):
+    with pytest.raises(ValueError):
+        ops.split_tile_plan(d, B)
 
 
 @pytest.mark.parametrize("kw", KINDS, ids=[k["kind"] for k in KINDS])
