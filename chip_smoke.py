@@ -5,7 +5,8 @@
 
 Run from the root of a checkout on a machine with one GPU and the CUDA
 toolkit.  It builds the hand-written kernels from src/repro_torch/kernels/
-csrc/ with nvcc (into build/repro_torch_kernels/) and runs seven phases:
+csrc/ with nvcc (into build/repro_torch_kernels/) and runs eight phases
+(phase 8 runs before phase 7):
 
 1. environment: card, power limit, versions, kernel build time and each
    kernel's registers and spills (ptxas -v); TF32 off;
@@ -20,13 +21,19 @@ csrc/ with nvcc (into build/repro_torch_kernels/) and runs seven phases:
    beside it; kernel and plain version are both held to float64 (kermat
    2e-5 of 1 + |exact|, kmeans_assign 1e-4 absolute, the others 2e-4 of
    1 + |exact|), and kermat's K(X, X) must equal its transpose bit for
-   bit;
+   bit; cd_column_update also at the other tasks' shapes: B = 2 (the
+   rank-2 pair step), B = 512 (chunked) and the dedup route (epsilon-SVR's
+   65,536 base rows at d = 10, y = 1);
 3. a fit through the kernels against a fit through the plain versions on
    the card, levels = 2, full_gram_threshold = 4096 (so level 0 takes the
-   Gram-free block CD), n = 8192, for covtype_like (d = 54, gamma 1) and
-   webspam_like (d = 254, gamma 0.5, C 8, tol 1e-5: the streamed forms):
-   same objective to 1e-4 relative, same test accuracy, kernel_matvec and
-   cd_column_update launched by the kernel fit;
+   Gram-free engines), n = 8192, for C-SVC on covtype_like (d = 54, gamma
+   1) and webspam_like (d = 254, gamma 0.5, C 8, tol 1e-5: the streamed
+   forms), weighted C-SVC on gaussian_mixture_imbalanced, epsilon-SVR on
+   friedman1 (dedup view), one-class SVM at eq_block_size 1 and 64 and
+   nu-SVC with bias at eq_block_size 128 (a 512-column rank-2B update):
+   same objective to 1e-4 relative, rho to 1e-4 of 1 + |rho|, the same
+   predictions, kernel_matvec and cd_column_update launched by the kernel
+   fit;
 4. the main path: binary C-SVC on covtype_like at the paper's covtype
    split (464,810 training points, 116,202 queries, d = 54), k = 4,
    levels = 4, m = 1000, C = 8, gamma = 1, the default 30,000 coordinate
@@ -50,6 +57,15 @@ csrc/ with nvcc (into build/repro_torch_kernels/) and runs seven phases:
 6. the solver loops' cost per step at the main path's shapes: wall time
    without the profiler, device time from torch.profiler, and their ratio,
    the device's busy share; the level-0 iteration graphed and eager;
+8. (a) one-class SVM (nu 0.1, gamma 1, k 4, levels 4, eq_block_size 1) on
+   the covtype_like training rows: level 0 runs the pairwise matvec engine
+   (cd_column_update at B = 2 a pair step, kernel_matvec a refresh);
+   seconds per level, launches per kernel, the nu-property, an early
+   model's per-cluster rho_c and oneclass_early_gap_bound, the ocsvm
+   export served exact and early against decision_exact and
+   decision_early; (b) epsilon-SVR on friedman1 (65,536 x 10, eps 0.1, C
+   4, gamma 1): level 0 graphed over the dedup view; test MSE below the
+   mean predictor's, the svr export served exact;
 7. dense-LM serving (qwen1.5-0.5b at full width, bf16, random weights
    from seed 0): (a) the flash library's bf16 kernels hold wgmma (HGMMA)
    and TMA (UTMALDG) instructions in their SASS; the flash_attention
@@ -89,6 +105,7 @@ DEV = "cuda"
 N_TRAIN, N_TEST = 464_810, 116_202      # the paper's covtype split
 GRAM_BUDGET = 16 * 2 ** 30              # bytes for a level's cluster Grams
 FIT_N, FIT_N_TEST = 8192, 2048          # phase 3
+FIT_FULL_GRAM = 4096                    # phase 3: level 0 Gram-free above it
 ACC_FLOOR = 0.75                        # least exact and early test accuracy
 EARLY_CHECK_N = 2048                    # queries in the early kernel-vs-plain check
 EARLY_TOL = 2e-5                        # of 1 + sum_j K(x, x_j) |beta_j|
@@ -107,6 +124,21 @@ WEB_GAMMA, WEB_C = 0.5, 8.0             # benchmarks/common.py's webspam_like
 # tests/test_torch_fit.py runs) it takes the block CD
 WEB_TOL = 1e-5
 KERMAT_TOL = 2e-5                       # of 1 + |exact| (test_kernels_pallas.py)
+# phase 8: one-class SVM on the covtype_like training rows (OC_N of them)
+# and epsilon-SVR on friedman1 at its published d = 10, at
+# benchmarks/bench_svr.py's eps 0.1, C 4, gamma 1.  OC_N is cut from the
+# 464,810 rows: there the level-1 solves leave 201,810 points with alpha > 0
+# (the warm start's projection onto each cluster's sum shifts every
+# coordinate), and the refine pass's dense Gram over them needs 152 GiB; at
+# 131,072 rows it fits even if every point stays a support vector
+OC_N, OC_NU = 131_072, 0.1
+OC_NU_SLACK = 0.01                      # outlier fraction <= nu + this
+OC_GAP_QUERIES = 256                    # queries of the gap-bound check
+OC_SIGMA_N = 1e-6                       # sigma_n given to the gap bound
+SVR_N, SVR_N_TEST, SVR_D = 65_536, 16_384, 10
+SVR_EPS, SVR_C = 0.1, 4.0
+SVR_PRED_TOL = 1e-2                     # phase 3: kernel vs plain SVR predictions
+PRED_MARGIN = 1e-3                      # phase 3: labels compared off |f| < this
 SVM_KERNELS = ("kermat", "kernel_matvec", "cd_column_update", "kmeans_assign")
 SOURCES = {"kermat": ("src/repro_torch/kernels/csrc/kermat.cu",
                       "src/repro/kernels/kermat.py:75"),
@@ -192,9 +224,13 @@ def rbf_f64(A, B, gamma):
     return (-gamma * sq.clamp(min=0.0)).exp()
 
 
-def phase_kernels(torch, Xtr, Xq_test, cfg_main, k_leaves, Xw):
+def phase_kernels(torch, Xtr, Xq_test, cfg_main, k_leaves, Xw, Xf):
     """Phase 2: each kernel against its plain version at main-path shapes,
-    and the split kernels' streamed forms on webspam rows (Xw, d = 254)."""
+    the split kernels' streamed forms on webspam rows (Xw, d = 254), and
+    cd_column_update at the shapes the other tasks give it: B = 2 (the
+    rank-2 pair step of phase 8's one-class level 0), B = 512 (chunked, two
+    launches) and the dedup route at epsilon-SVR's base rows (Xf, friedman1,
+    d = 10: all-ones y, B = 64)."""
     from repro_torch.core import Kernel
     from repro_torch.core.predict import early_capacity
     from repro_torch.kernels import ops, ref
@@ -271,6 +307,26 @@ def phase_kernels(torch, Xtr, Xq_test, cfg_main, k_leaves, Xw):
             tol=2e-4, reps=10, shape=f"webspam ({N_WEB}, {dw}) x ({Bw}, {dw}), "
                                      f"plan {ops.split_tile_plan(dw, Bw)}")
 
+    def cd_case(Xa, ya, Xs, ws, gamma_, reps, shape):
+        kern_ = Kernel("rbf", gamma=gamma_)
+        na, da = Xa.shape
+        Bs = Xs.shape[0]
+        return dict(
+            run=lambda: ops.cd_column_update(Xa, ya, Xs, ws, kern_),
+            plain=lambda: ref.cd_column_update_ref(Xa, ya, Xs, ws, kind="rbf",
+                                                   gamma=gamma_),
+            matmul=lambda: Xa @ Xs.T,
+            flops=na * Bs * (2 * da + 7),
+            bytes=4 * (na * (da + 2) + Bs * (da + 1)),
+            pairs=na * Bs, depth=da,
+            f64=lambda got, want: (got, want, ya.double() * (
+                rbf_f64(Xa, Xs, gamma_) @ ws.double())),
+            tol=2e-4, reps=reps,
+            shape=f"{shape} ({na}, {da}) x ({Bs}, {da}), "
+                  f"{len(ops.cd_chunks(Bs))} launch(es) of "
+                  f"{[b - a for a, b in ops.cd_chunks(Bs)]} columns")
+
+    ones_f = torch.ones(Xf.shape[0], device=DEV)
     cases = {
         "kermat": dict(
             run=lambda: ops.kernel_matrix(Xc, Xc, kern),
@@ -335,6 +391,16 @@ def phase_kernels(torch, Xtr, Xq_test, cfg_main, k_leaves, Xw):
                   f"the first {NXN_ROWS} rows, plan {ops.split_tile_plan(dw)}"),
         "cd_column_update_d254_b64": cd_web(64),
         "cd_column_update_d254_b256": cd_web(256),
+        "cd_column_update_b2": cd_case(
+            Xtr, ys, Xtr[:2].contiguous(), w[:2].contiguous(), g, 50,
+            "rank-2 pair step"),
+        "cd_column_update_b512": cd_case(
+            Xtr, ys, Xtr[:512].contiguous(),
+            torch.randn(512, device=DEV, generator=gen), g, 10,
+            "rank-2B, 512 columns"),
+        "cd_column_update_dedup": cd_case(
+            Xf, ones_f, Xf[:64].contiguous(), w, 1.0, 50,
+            "dedup route, epsilon-SVR base rows, y = 1,"),
     }
     rows = {}
     for name, c in cases.items():
@@ -478,40 +544,78 @@ def assign_case(torch, Xa, Xtr, k, kern, m):
 
 def phase_fit_parity(torch, datasets):
     """Phase 3: kernel fit vs plain fit on the card, for each of
-    ``datasets``: (name, kernel, C, tol, X, y, Xte, yte)."""
+    ``datasets``: (name, kernel, C, tol, X, y, Xte, yte, task, extra config).
+    Same objective to 1e-4 relative, rho (the equality tasks) to 1e-4 of
+    1 + |rho|, the same predictions (labels off a PRED_MARGIN band around
+    0; SVR values to SVR_PRED_TOL), and the kernel fit launching
+    kernel_matvec and cd_column_update."""
     import dataclasses
 
-    from repro_torch.core import (DCSVMConfig, accuracy, fit,
-                                  objective_value, predict_exact)
+    from repro_torch.core import (DCSVMConfig, fit, objective_value,
+                                  predict_exact)
+    from repro_torch.core.predict import decision_exact
     from repro_torch.kernels import ops
 
-    for name, kern, C, tol, X, y, Xte, yte in datasets:
+    for name, kern, C, tol, X, y, Xte, yte, task, extra in datasets:
         cfg = DCSVMConfig(kernel=kern, C=C, k=4, levels=2, m=1000,
-                          full_gram_threshold=4096, tol=tol, seed=SEED)
+                          full_gram_threshold=FIT_FULL_GRAM, tol=tol,
+                          seed=SEED, **extra)
         out = {}
         for use in (True, False):
             c = dataclasses.replace(cfg, use_kernels=use)
             torch.cuda.synchronize()
             ops.reset_launches()
             t0 = time.perf_counter()
-            model = fit(c, X, y, device=DEV)
+            model = fit(c, X, None if task is not None and task.label_free
+                        else y, device=DEV, task=task)
             torch.cuda.synchronize()
             t_fit = time.perf_counter() - t0
             launches = dict(ops.LAUNCHES)
-            obj = float(objective_value(c, model.X, model.y, model.alpha))
-            acc = accuracy(yte, predict_exact(model, Xte))
+            td = model.task.build(model.X, model.y[None], C)
+            obj = float(objective_value(c, td.Xd, td.S[0], model.alpha,
+                                        p=td.P[0]))
+            dec = decision_exact(model, Xte)
+            pred = predict_exact(model, Xte)
             st0 = model.level_stats[-1]
-            out[use] = (obj, acc, launches)
+            out[use] = (obj, model.rho, dec, pred, launches)
+            if model.task.is_regression:
+                quality = f"test_mse={float(((pred - yte) ** 2).mean()):.5f}"
+            elif model.task.label_free:
+                quality = f"outlier_frac={float((pred < 0).float().mean()):.4f}"
+            else:
+                quality = f"test_acc={float((pred == yte).float().mean()):.4f}"
             log(f"fit {name} n={X.shape[0]} d={X.shape[1]} use_kernels={use}: "
-                f"objective={obj:.6f} test_acc={acc:.4f} fit_s={t_fit:.2f} "
-                f"level0_iters={st0['iters']} level0_pg_max="
-                f"{st0['pg_max']:.3e} n_sv={st0['n_sv']} kernels "
-                + json.dumps(launches))
-        (ok, ak, lk), (op, ap, _) = out[True], out[False]
+                f"objective={obj:.6f} rho={model.rho} {quality} "
+                f"fit_s={t_fit:.2f} level0_iters={st0['iters']} "
+                f"level0_pg_max={st0['pg_max']:.3e} n_sv={st0['n_sv']} "
+                f"levels_s={[round(s_['train_time'], 2) for s_ in model.level_stats]} "
+                "kernels " + json.dumps(launches))
+        (ok, rk, dk, pk, lk), (op, rp, dp, pp, _) = out[True], out[False]
         if not abs(ok - op) <= 1e-4 * abs(op):
             raise AssertionError(f"{name}: objectives differ: {ok} vs {op}")
-        if ak != ap:
-            raise AssertionError(f"{name}: accuracies differ: {ak} vs {ap}")
+        if rp is not None and not abs(rk - rp) <= 1e-4 * (1 + abs(rp)):
+            raise AssertionError(f"{name}: rho differs: {rk} vs {rp}")
+        if task is not None and task.is_regression:
+            differ = float((pk - pp).abs().max())
+            line = f"max |prediction difference| {differ:.3e}"
+            bad = not differ <= SVR_PRED_TOL
+        else:
+            clear = (dp.abs() > PRED_MARGIN) & (dk.abs() > PRED_MARGIN)
+            differ = int((pk != pp)[clear].sum())
+            line = (f"labels differing {differ} of {int(clear.sum())} off the "
+                    f"|f| < {PRED_MARGIN:.0e} band ({int((~clear).sum())} in "
+                    f"it)")
+            bad = differ > 0
+            if task is None or not task.label_free:
+                acc = [float((q == yte).float().mean()) for q in (pk, pp)]
+                line += f"; accuracy {acc[0]:.4f} vs {acc[1]:.4f}"
+                bad = bad or acc[0] != acc[1]
+        log(f"fit {name}: kernel vs plain objective rel "
+            f"{abs(ok - op) / abs(op):.3e}" + (
+                f", rho {abs(rk - rp) / (1 + abs(rp)):.3e} of 1 + |rho|"
+                if rp is not None else "") + f"; {line}")
+        if bad:
+            raise AssertionError(f"{name}: predictions differ: {line}")
         missing = [k for k in ("kernel_matvec", "cd_column_update")
                    if lk[k] == 0]
         if missing:
@@ -922,6 +1026,240 @@ def phase_serving(torch, early, Xte, yte, d_eq10, d_early):
         if not acc > ACC_FLOOR:
             raise AssertionError(f"serve CLI accuracy {acc} <= {ACC_FLOOR}")
     return launches, kermat_serving_case(torch, sm, Xte, kern)
+
+
+def _served_errors(sm, Xq, kern, pairs):
+    """Serve Xq in SERVE_BUCKET-row calls for each (strategy, decision,
+    magnitude) of ``pairs`` and return the largest difference of the
+    served score from the decision, relative to 1 + the magnitude
+    sum_j K(x, x_j) |beta_j| (see early_errors), by strategy."""
+    errs = {}
+    for strategy, want, mag in pairs:
+        _, scores = serve_all(sm, Xq, kern, strategy)
+        if scores.shape != (Xq.shape[0], 1):
+            raise AssertionError(f"served {strategy} scores malformed: "
+                                 f"{tuple(scores.shape)}")
+        errs[strategy] = float(((scores[:, 0] - want).abs()
+                                / (1.0 + mag)).max())
+    return errs
+
+
+def _level_seconds(timer):
+    return {k: round(v, 2) for k, v in timer.totals.items()}
+
+
+def phase_oneclass(torch, Xtr, Xte):
+    """Phase 8(a): one-class SVM at full width on the covtype_like training
+    rows (OC_N of them, d = 54), nu = OC_NU, gamma 1, k 4, levels 4, m 1000,
+    the default tol and 30,000 iterations, eq_block_size 1: level 0 runs
+    solve_eq_qp_matvec, cd_column_update at B = 2 a pair step and
+    kernel_matvec a refresh.  Checks the nu-property, an early model's
+    per-cluster rho_c and oneclass_early_gap_bound, and the ocsvm export
+    served exact and early.  Returns the launches of the fit and its
+    decisions, by kernel."""
+    import dataclasses
+
+    from repro_torch.core import DCSVMConfig, Kernel, fit
+    from repro_torch.core import dcsvm as D
+    from repro_torch.core.bounds import oneclass_early_gap_bound
+    from repro_torch.core.kkmeans import assign_points
+    from repro_torch.core.predict import decision_early, decision_exact
+    from repro_torch.core.tasks import OneClassSVM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_svm import export_serving_model
+    from repro_torch.obs.spans import SpanTimer
+
+    X = Xtr[:OC_N].contiguous()
+    n = X.shape[0]
+    cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=1.0), C=1.0, k=4, levels=4,
+                      m=1000, gram_budget=GRAM_BUDGET, seed=SEED,
+                      eq_block_size=1)
+    task = OneClassSVM(nu=OC_NU)
+    level1 = {}
+
+    def cb(level, alpha, st):
+        if level == 1:
+            level1["alpha"] = alpha.clone()
+        extra = (f" iters={st['iters']} pg_max={st['pg_max']:.3e}"
+                 if level == 0 else "")
+        log(f"ocsvm level {level}: clusters={st['clusters']} n_sv="
+            f"{st['n_sv']} cluster_s={st['cluster_time']:.2f} solve_s="
+            f"{st['train_time']:.2f}{extra}")
+
+    torch.cuda.synchronize()
+    timer = SpanTimer()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with timer.activate():
+        model = fit(cfg, X, None, callback=cb, task=task, device=DEV)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    f_train = decision_exact(model, X)
+    d_exact = decision_exact(model, Xte)
+    # the early model (eq. 11) at level 1, as fit(early_stop_level=1)
+    # returns it: the level-1 alpha on the level-1 partition, with the
+    # per-cluster offsets of its local sub-QPs
+    td = task.build(X, torch.zeros((1, n), device=DEV), cfg.C)
+    a1 = level1["alpha"][None]
+    early = dataclasses.replace(
+        model, alpha=a1[0], beta=td.collapse(a1)[0], is_early=True,
+        rho=D._recover_rho(cfg, td, task, a1),
+        rho_clusters=D._recover_rho_clusters(cfg, td, task, a1,
+                                             model.partition))
+    d_early = decision_early(early, Xte)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    st0 = model.level_stats[-1]
+    sv_frac = float((model.alpha > 0).float().mean())
+    bound_frac = float((model.alpha >= 1.0).float().mean())
+    # free SVs sit on f = 0 to within the KKT gap the solve stopped at, so an
+    # outlier is f < -max(tol, pg_max)
+    band = max(cfg.tol, model.level_stats[-1]["pg_max"])
+    out_frac = float((f_train < -band).float().mean())
+    log(f"ocsvm: n={n} (cut from {Xtr.shape[0]}: the refine Gram over the "
+        f"level-1 support vectors) d={X.shape[1]} nu={OC_NU} fit_s={t_fit:.2f} "
+        f"rho={model.rho:.6f} level0_iters={st0['iters']} level0_pg_max="
+        f"{st0['pg_max']:.3e} sv_frac={sv_frac:.4f} at_bound_frac="
+        f"{bound_frac:.4f} outlier_frac(f<-{band:.1e})={out_frac:.4f} "
+        f"(f<0: {float((f_train < 0).float().mean()):.4f}) spans_s "
+        + json.dumps(_level_seconds(timer)))
+    log("ocsvm kernels " + json.dumps(launches) + f" (level-0 pair steps "
+        f"{st0['iters']}, cap {cfg.max_iters})")
+    for name, dv in (("exact", d_exact), ("early", d_early),
+                     ("train", f_train)):
+        if not bool(torch.isfinite(dv).all()):
+            raise AssertionError(f"ocsvm {name} decisions not finite")
+    if not (out_frac <= OC_NU + OC_NU_SLACK and sv_frac >= OC_NU - 1e-6):
+        raise AssertionError(f"nu-property fails: outliers {out_frac}, SVs "
+                             f"{sv_frac}, nu {OC_NU} (slack {OC_NU_SLACK})")
+    missing = [k for k in SVM_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the one-class path: "
+                             f"{missing}")
+    # the early model scores each query with its routed cluster's rho_c
+    rho_c = early.rho_clusters
+    cid, _ = assign_points(cfg.kernel, model.partition.model, Xte,
+                           use_kernels=True)
+    no_off = decision_early(dataclasses.replace(early, rho_clusters=None,
+                                                rho=0.0), Xte)
+    shift = float((no_off - rho_c[cid] - d_early).abs().max())
+    log(f"ocsvm early model: rho_c {[round(float(r), 6) for r in rho_c]} "
+        f"(global rho of the level-1 alpha {early.rho:.6f}); decision_early "
+        f"less (the offset-free scores - rho_c[cluster]): max {shift:.3e}")
+    if rho_c.shape != (model.partition.k,) or not shift <= 1e-4:
+        raise AssertionError("the early model does not use its rho_c")
+    Xq = Xte[:OC_GAP_QUERIES]
+    cid_q = cid[:OC_GAP_QUERIES]
+    t1 = time.perf_counter()
+    gap = oneclass_early_gap_bound(
+        cfg.kernel, X, model.partition.assign, early.alpha, model.rho, rho_c,
+        Xq, cid_q.cpu().numpy(), OC_SIGMA_N, alpha_exact=model.alpha,
+        num_chunks=-(-n * n // 2 ** 28))
+    err = float((decision_early(early, Xq) - decision_exact(model, Xq))
+                .abs().max())
+    log(f"ocsvm gap bound ({time.perf_counter() - t1:.1f}s, sigma_n "
+        f"{OC_SIGMA_N:g}): |f_early - f| max {err:.4e} <= bound_measured "
+        f"{gap['bound_measured']:.4e} (drift {gap['term_drift_measured']:.4e}"
+        f", cross {gap['term_cross']:.4e}, rho {gap['term_rho']:.4e}); "
+        f"a-priori bound {gap['bound']:.4e}, D(pi) {gap['d_pi']:.4e}")
+    if not err <= gap["bound_measured"] <= gap["bound"]:
+        raise AssertionError(f"oneclass_early_gap_bound fails: {err}, {gap}")
+    # the ocsvm export with every SV, served exact and early
+    part = early.partition
+    per = [int((early.weights[torch.as_tensor(part.idx[c][part.mask[c]],
+                                               device=DEV)] != 0).sum())
+           for c in range(part.k)]
+    sm = export_serving_model(early, max_sv_per_cluster=max(per),
+                              with_bcm=False)
+    absm = dataclasses.replace(early, beta=early.weights.abs(), rho=None,
+                               rho_clusters=None)
+    mag = decision_exact(absm, Xte)
+    errs = _served_errors(sm, Xte, cfg.kernel, (
+        ("exact", decision_exact(early, Xte), mag),
+        ("early", d_early, mag)))
+    log(f"ocsvm export (every SV, {per} a cluster, rho_c {sm.rho_c.shape[0]}"
+        f"): served exact and early, max error of 1 + sum_j K |beta_j| "
+        f"{errs} (tolerance {EARLY_TOL:.0e})")
+    if not max(errs.values()) <= EARLY_TOL:
+        raise AssertionError(f"ocsvm serving disagrees: {errs}")
+    return launches, timer.totals
+
+
+def phase_svr(torch):
+    """Phase 8(b): epsilon-SVR on friedman1 at d = SVR_D, SVR_N training
+    rows and SVR_N_TEST queries, eps 0.1, C 4, gamma 1, k 4, levels 4: a
+    dual of 2 SVR_N coordinates, so level 0 takes the graphed block CD with
+    the dedup view's cd_column_update.  Checks test MSE below the
+    predict-the-mean MSE and the svr export served exact.  Returns the
+    launches of the fit and its decisions, by kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import DCSVMConfig, Kernel, fit
+    from repro_torch.core.predict import decision_exact, mse
+    from repro_torch.core.tasks import EpsilonSVR
+    from repro_torch.data import friedman1, train_test_split
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_svm import export_serving_model
+    from repro_torch.obs.spans import SpanTimer
+
+    rng = np.random.default_rng(SEED + 2)
+    X, y = friedman1(rng, SVR_N + SVR_N_TEST, d=SVR_D)
+    Xtr, ytr, Xte, yte = (torch.from_numpy(a).to(DEV) for a in
+                          train_test_split(rng, X, y, test_frac=SVR_N_TEST / (
+                              SVR_N + SVR_N_TEST)))
+    cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=1.0), C=SVR_C, k=4,
+                      levels=4, m=1000, gram_budget=GRAM_BUDGET, seed=SEED)
+
+    def cb(level, alpha, st):
+        extra = (f" iters={st['iters']} pg_max={st['pg_max']:.3e}"
+                 if level == 0 else "")
+        log(f"svr level {level}: clusters={st['clusters']} n_sv={st['n_sv']} "
+            f"cluster_s={st['cluster_time']:.2f} solve_s="
+            f"{st['train_time']:.2f}{extra}")
+
+    torch.cuda.synchronize()
+    timer = SpanTimer()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with timer.activate():
+        model = fit(cfg, Xtr, ytr, callback=cb, task=EpsilonSVR(eps=SVR_EPS),
+                    device=DEV)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    d_exact = decision_exact(model, Xte)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    st0 = model.level_stats[-1]
+    test_mse = mse(yte, d_exact)
+    mean_mse = mse(yte, torch.full_like(yte, float(ytr.mean())))
+    log(f"svr: n={Xtr.shape[0]} (dual {2 * Xtr.shape[0]}) d={Xtr.shape[1]} "
+        f"fit_s={t_fit:.2f} level0_iters={st0['iters']} level0_pg_max="
+        f"{st0['pg_max']:.3e} n_sv={len(model.sv_index)} test_mse="
+        f"{test_mse:.5f} mean_predictor_mse={mean_mse:.5f} spans_s "
+        + json.dumps(_level_seconds(timer)))
+    log("svr kernels " + json.dumps(launches) + f" (level-0 iterations "
+        f"{st0['iters']}, cap {cfg.max_iters})")
+    if not bool(torch.isfinite(d_exact).all()) or d_exact.shape != yte.shape:
+        raise AssertionError("svr decisions malformed")
+    if not test_mse < mean_mse:
+        raise AssertionError(f"svr test MSE {test_mse} not below the "
+                             f"predict-the-mean MSE {mean_mse}")
+    missing = [k for k in SVM_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the SVR path: "
+                             f"{missing}")
+    sm = export_serving_model(model, max_sv_per_cluster=Xtr.shape[0],
+                              with_bcm=False)
+    absm = dataclasses.replace(model, beta=model.weights.abs())
+    errs = _served_errors(sm, Xte, cfg.kernel, (
+        ("exact", d_exact, decision_exact(absm, Xte)),))
+    log(f"svr export ({sm.Xall.shape[0]} SVs): served exact, max error of 1 "
+        f"+ sum_j K |beta_j| {errs} (tolerance {EARLY_TOL:.0e})")
+    if not max(errs.values()) <= EARLY_TOL:
+        raise AssertionError(f"svr serving disagrees: {errs}")
+    return launches, timer.totals
 
 
 def wall_ms(torch, fn) -> float:
@@ -1356,8 +1694,11 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from repro_torch.core import DCSVMConfig, Kernel
-    from repro_torch.data import covtype_like, train_test_split, webspam_like
+    from repro_torch.core import (DCSVMConfig, EpsilonSVR, Kernel, NuSVC,
+                                  OneClassSVM, WeightedCSVC)
+    from repro_torch.data import (covtype_like, friedman1,
+                                  gaussian_mixture_imbalanced,
+                                  train_test_split, webspam_like)
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -1396,19 +1737,39 @@ def main() -> int:
         f"{float((Xw == 0).float().mean()):.3f} of entries zero, "
         f"{time.perf_counter() - t0:.2f}s")
 
+    # friedman1 at its published d = 10 (phase 8(b)'s draw): phase 2's
+    # dedup-route rows and phase 3's SVR fit
+    Xf, yf = (torch.from_numpy(a).to(DEV) for a in friedman1(
+        np.random.default_rng(SEED + 2), SVR_N + SVR_N_TEST, d=SVR_D))
+    Xi, yi = (torch.from_numpy(a).to(DEV) for a in gaussian_mixture_imbalanced(
+        np.random.default_rng(SEED + 3), FIT_N + FIT_N_TEST, d=10))
+
     cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=1.0), C=8.0, k=4, levels=4,
                       m=1000, gram_budget=GRAM_BUDGET, seed=SEED)
     t0 = time.perf_counter()
-    rows = phase_kernels(torch, Xtr, Xte, cfg, cfg.k ** cfg.levels, Xw)
+    rows = phase_kernels(torch, Xtr, Xte, cfg, cfg.k ** cfg.levels, Xw,
+                         Xf[:SVR_N].contiguous())
     log(f"phase kernels: {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     fw, fw_te = slice(0, FIT_N), slice(FIT_N, FIT_N + FIT_N_TEST)
+    cov = (Xtr[:FIT_N], ytr[:FIT_N], Xte[:FIT_N_TEST], yte[:FIT_N_TEST])
     phase_fit_parity(torch, [
-        ("covtype_like", cfg.kernel, cfg.C, cfg.tol, Xtr[:FIT_N], ytr[:FIT_N],
-         Xte[:FIT_N_TEST], yte[:FIT_N_TEST]),
+        ("covtype_like", cfg.kernel, cfg.C, cfg.tol, *cov, None, {}),
         ("webspam_like", Kernel("rbf", gamma=WEB_GAMMA), WEB_C, WEB_TOL,
-         Xw[fw], yw[fw], Xw[fw_te], yw[fw_te])])
-    del Xw, yw
+         Xw[fw], yw[fw], Xw[fw_te], yw[fw_te], None, {}),
+        ("weighted-svc gaussian_mixture_imbalanced", Kernel("rbf", gamma=8.0),
+         4.0, cfg.tol, Xi[fw], yi[fw], Xi[fw_te], yi[fw_te],
+         WeightedCSVC(w_pos=10.0), {}),
+        ("svr friedman1 (dedup view)", cfg.kernel, SVR_C, cfg.tol, Xf[fw],
+         yf[fw], Xf[fw_te], yf[fw_te], EpsilonSVR(eps=SVR_EPS), {}),
+        ("one-class covtype_like, eq_block_size 1", cfg.kernel, 1.0, cfg.tol,
+         *cov, OneClassSVM(nu=OC_NU), {"eq_block_size": 1}),
+        ("one-class covtype_like, eq_block_size 64", cfg.kernel, 1.0, cfg.tol,
+         *cov, OneClassSVM(nu=OC_NU), {"eq_block_size": 64}),
+        ("nu-svc with bias covtype_like, eq_block_size 128", cfg.kernel, 1.0,
+         cfg.tol, *cov, NuSVC(nu=OC_NU, with_bias=True),
+         {"eq_block_size": 128})])
+    del Xw, yw, Xf, yf, Xi, yi
     log(f"phase fit parity: {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     launches, early, d_eq10, d_early, rows["kernel_matvec_exact"] = \
@@ -1423,7 +1784,16 @@ def main() -> int:
     t0 = time.perf_counter()
     level0 = phase_loops(torch, Xtr, ytr, cfg)
     log(f"phase loops: {time.perf_counter() - t0:.2f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    oc_launches, _ = phase_oneclass(torch, Xtr, Xte)
+    log(f"phase one-class (8a): {time.perf_counter() - t0:.2f}s")
     del Xtr, ytr, Xte, yte
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    svr_launches, _ = phase_svr(torch)
+    log(f"phase svr (8b): {time.perf_counter() - t0:.2f}s")
+    torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     rows["flash_attention"], lm_prefill, lm_decode = phase_lm(torch)
@@ -1436,7 +1806,10 @@ def main() -> int:
                                "exact": "kernel_matvec_exact",
                                "d254": "kernel_matvec_d254"},
              "cd_column_update": {"d254_b64": "cd_column_update_d254_b64",
-                                  "d254_b256": "cd_column_update_d254_b256"},
+                                  "d254_b256": "cd_column_update_d254_b256",
+                                  "b2": "cd_column_update_b2",
+                                  "b512": "cd_column_update_b512",
+                                  "dedup": "cd_column_update_dedup"},
              "kmeans_assign": {"routing": "kmeans_assign_routing"}}
     for name, (source, replaces) in SOURCES.items():
         r = rows[name]
@@ -1447,7 +1820,9 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         if name in SVM_KERNELS:
-            row.update(matmul_only_ms=r["matmul_ms"],
+            row.update(launches_phase8a=oc_launches[name],
+                       launches_phase8b=svr_launches[name],
+                       matmul_only_ms=r["matmul_ms"],
                        bound_detail=r["bound_detail"],
                        bound_f32_ms=r["bound_f32_ms"],
                        err_vs_f64=r["err_vs_f64"])

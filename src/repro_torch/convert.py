@@ -6,7 +6,12 @@ trained on a TPU predicts the same here:
 
     arrays = {"X": ..., "y": ..., "alpha": ..., "beta": ...,
               "assign": ..., "idx": ..., "mask": ...,   # the partition
-              "Xm": ..., "W": ..., "s": ...}            # its routing model
+              "Xm": ..., "W": ..., "s": ...,            # its routing model
+              "rho": ..., "rho_clusters": ...}          # equality tasks
+
+and the task as its name and hyper-parameters (``task=`` and
+``task_params=``, e.g. ``"ocsvm", {"nu": 0.1}``, the reference task's
+``name`` and dataclass fields), or as a port ``Task``.
 
 ``from_jax_multiclass`` does the same for a reference ``MulticlassModel``,
 with "classes" and "Y" in place of "y" and "beta".
@@ -25,6 +30,7 @@ import torch
 from repro_torch.core.dcsvm import DCSVMConfig, DCSVMModel
 from repro_torch.core.kkmeans import KKMeansModel, Partition
 from repro_torch.core.multiclass import MulticlassModel
+from repro_torch.core.tasks import CSVC, TASKS, Task
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.param import torch_dtype
@@ -32,15 +38,29 @@ from repro_torch.models.param import torch_dtype
 
 def from_jax_arrays(d: Dict[str, np.ndarray], cfg: DCSVMConfig,
                     device: DeviceLike = None, is_early: bool = False,
-                    level_stats: Optional[list] = None) -> DCSVMModel:
+                    level_stats: Optional[list] = None, task=None,
+                    task_params: Optional[Dict[str, Any]] = None
+                    ) -> DCSVMModel:
     """Build a port ``DCSVMModel`` from a reference model's arrays.  The
-    partition keys are optional (an exact-only model has none)."""
+    partition keys, "beta", "rho" and "rho_clusters" are optional (an
+    exact-only model has no partition, a box-family model no rho).  ``task``
+    is a port ``Task`` or a task name of ``core.tasks.TASKS`` built with
+    ``task_params``; default C-SVC."""
     dev = resolve_device(device)
     t = _tensors(d, dev)
+    if task is None:
+        task = CSVC()
+    elif not isinstance(task, Task):
+        task = TASKS[task](**(task_params or {}))
+    rho = d.get("rho")
     return DCSVMModel(config=cfg, X=t("X"), y=t("y"), alpha=t("alpha"),
                       partition=_partition(d, t), is_early=is_early,
-                      level_stats=list(level_stats or []),
-                      beta=t("beta") if "beta" in d else None)
+                      level_stats=list(level_stats or []), task=task,
+                      beta=t("beta") if "beta" in d else None,
+                      rho=None if rho is None else float(np.asarray(rho)),
+                      rho_clusters=(t("rho_clusters")
+                                    if d.get("rho_clusters") is not None
+                                    else None))
 
 
 def from_jax_multiclass(d: Dict[str, np.ndarray], cfg: DCSVMConfig,

@@ -8,17 +8,20 @@ from repro_torch.core.multiclass import (MulticlassModel, fit_ova,
 from repro_torch.core.predict import (accuracy, accuracy_multiclass,
                                       decision_bcm, decision_bcm_ova,
                                       decision_early, decision_early_ova,
-                                      decision_exact, decision_exact_ova,
-                                      predict_bcm, predict_bcm_ova,
-                                      predict_early, predict_early_ova,
-                                      predict_exact, predict_exact_ova)
-from repro_torch.core.tasks import CSVC
+                                      decision_exact, decision_exact_ova, f1,
+                                      mae, mse, precision, predict_bcm,
+                                      predict_bcm_ova, predict_early,
+                                      predict_early_ova, predict_exact,
+                                      predict_exact_ova, recall)
+from repro_torch.core.tasks import (CSVC, EpsilonSVR, NuSVC, OneClassSVM,
+                                    Task, WeightedCSVC)
 
-__all__ = ["CSVC", "DCSVMConfig", "DCSVMModel", "Kernel", "MulticlassModel",
+__all__ = ["CSVC", "DCSVMConfig", "DCSVMModel", "EpsilonSVR", "Kernel",
+           "MulticlassModel", "NuSVC", "OneClassSVM", "Task", "WeightedCSVC",
            "accuracy", "accuracy_multiclass", "decision_bcm",
            "decision_bcm_ova", "decision_early", "decision_early_ova",
-           "decision_exact", "decision_exact_ova", "fit", "fit_ova", "gram",
-           "gram_matvec", "labels_to_ova", "objective_value",
-           "ova_cost_vectors", "predict_bcm", "predict_bcm_ova",
-           "predict_early", "predict_early_ova", "predict_exact",
-           "predict_exact_ova"]
+           "decision_exact", "decision_exact_ova", "f1", "fit", "fit_ova",
+           "gram", "gram_matvec", "labels_to_ova", "mae", "mse",
+           "objective_value", "ova_cost_vectors", "precision", "predict_bcm",
+           "predict_bcm_ova", "predict_early", "predict_early_ova",
+           "predict_exact", "predict_exact_ova", "recall"]

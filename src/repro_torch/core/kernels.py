@@ -111,3 +111,18 @@ def gram_matvec(kernel: Kernel, X: torch.Tensor, v: torch.Tensor,
     rows = -(-n // num_chunks)
     return torch.cat([kernel.pairwise(X[i:i + rows], X) @ v
                       for i in range(0, n, rows)])
+
+
+def offdiag_mass(kernel: Kernel, X: torch.Tensor, labels, num_chunks: int = 8
+                 ) -> torch.Tensor:
+    """D(pi) = sum_{i,j: pi(i) != pi(j)} |K(x_i, x_j)| (the Theorem-1
+    quantity), over row chunks so the full Gram is never formed."""
+    labels = torch.as_tensor(labels, device=X.device)
+    n = X.shape[0]
+    rows = -(-n // max(num_chunks, 1))
+    total = torch.zeros((), dtype=X.dtype, device=X.device)
+    for i in range(0, n, rows):
+        K = torch.abs(kernel.pairwise(X[i:i + rows], X))
+        total = total + torch.sum(K * (labels[i:i + rows, None]
+                                       != labels[None, :]))
+    return total

@@ -1,4 +1,10 @@
-"""Prediction for DC-SVM models (port of ``repro.core.predict``, C-SVC).
+"""Prediction for DC-SVM models of every task (port of
+``repro.core.predict``).
+
+Every strategy scores with the collapsed coefficients ``beta`` over the base
+points (``model.weights``), less the offset ``rho`` of the equality tasks;
+``predict_*`` returns signs for classifiers, ``d >= 0 -> +1`` for the tasks
+with an offset, and the raw decision for regression.
 
 * ``decision_exact``  -- f(x) = sum_i beta_i K(x, x_i) over all support
   vectors: one streaming ``kernel_matvec`` launch with ``use_kernels``,
@@ -110,13 +116,37 @@ def _use_kernels(model, use_kernels: Optional[bool]) -> bool:
     return resolve_use_kernels(use_kernels, model.X.device)
 
 
+def _is_regression(model) -> bool:
+    task = getattr(model, "task", None)
+    return bool(task is not None and task.is_regression)
+
+
+def _offset(model) -> float:
+    """Decision offset rho of the equality tasks; 0 for the box family."""
+    rho = getattr(model, "rho", None)
+    return 0.0 if rho is None else float(rho)
+
+
+def _labels(model, d: torch.Tensor) -> torch.Tensor:
+    """Decisions -> predictions: raw values for regression, +/-1 for
+    classification; a task with an offset thresholds ``d >= 0 -> +1``
+    (inlier), as ``serve_batch`` does, where ``sign`` would give 0 on the
+    boundary."""
+    if _is_regression(model):
+        return d
+    if getattr(getattr(model, "task", None), "has_rho_offset", False):
+        return torch.where(d >= 0, 1.0, -1.0).to(d.dtype)
+    return torch.sign(d)
+
+
 def decision_exact(model: DCSVMModel, Xq, chunk: int = 4096,
                    use_kernels: Optional[bool] = None) -> torch.Tensor:
-    """f(x) = sum_i beta_i K(x_i, x) over all support vectors."""
+    """f(x) = sum_i beta_i K(x_i, x) - rho over all support vectors."""
     Xq = _query(model, Xq)
+    off = _offset(model)
     sv = torch.as_tensor(model.sv_index, device=model.X.device)
     if len(sv) == 0:
-        return torch.zeros(Xq.shape[0], dtype=Xq.dtype, device=Xq.device)
+        return torch.zeros(Xq.shape[0], dtype=Xq.dtype, device=Xq.device) - off
     Xs = model.X[sv]
     w = model.weights[sv]
     kern = model.config.kernel
@@ -124,12 +154,13 @@ def decision_exact(model: DCSVMModel, Xq, chunk: int = 4096,
         from repro_torch.kernels import ops
 
         return ops.kernel_matvec(Xq.contiguous(), Xs.contiguous(),
-                                 w.contiguous(), kern).to(Xq.dtype)
-    return _decision_scan(kern, Xq, Xs, w[:, None], chunk)[:, 0]
+                                 w.contiguous(), kern).to(Xq.dtype) - off
+    return _decision_scan(kern, Xq, Xs, w[:, None], chunk)[:, 0] - off
 
 
 def predict_exact(model: DCSVMModel, Xq) -> torch.Tensor:
-    return torch.sign(decision_exact(model, Xq))
+    """Labels for classifiers, raw values for regression."""
+    return _labels(model, decision_exact(model, Xq))
 
 
 def _early_blocks(model, w: torch.Tensor):
@@ -164,38 +195,53 @@ def bucket_size(nq: int, lo: int = 8, hi: int = 4096) -> int:
 def decision_early(model: DCSVMModel, Xq,
                    use_kernels: Optional[bool] = None) -> torch.Tensor:
     """Paper eq. 11: nearest-cluster routing + local-model scoring, all
-    clusters in one batched launch per round."""
+    clusters in one batched launch per round.  An early equality model
+    subtracts its routed cluster's own offset ``rho_c``."""
     part = model.partition
     if part is None:
         raise ValueError("early prediction requires a partitioned model")
     Xq = _query(model, Xq)
     Xm, wm = _early_blocks(model, model.weights)
     cap = early_capacity(Xq.shape[0], part.k)
+    rho_c = getattr(model, "rho_clusters", None)
+    offsets = None if rho_c is None else torch.as_tensor(
+        rho_c, dtype=Xq.dtype, device=Xq.device)[:, None]
+    off = 0.0 if offsets is not None else _offset(model)
     return _early_program(model.config.kernel, Xq, part.model, Xm, wm, cap,
-                          use_kernels=_use_kernels(model, use_kernels))[:, 0]
+                          use_kernels=_use_kernels(model, use_kernels),
+                          offsets=offsets)[:, 0] - off
 
 
 def predict_early(model: DCSVMModel, Xq) -> torch.Tensor:
-    return torch.sign(decision_early(model, Xq))
+    return _labels(model, decision_early(model, Xq))
 
 
 def decision_bcm(model: DCSVMModel, Xq, noise: float = 1e-2,
                  max_sv_per_cluster: int = 512) -> torch.Tensor:
     """Bayesian Committee Machine combination of the k local models (the
-    paper's Table-1 baseline): each cluster's local decision f_c(x),
-    weighted by the inverse GP predictive variance on (a subsample of) its
-    support vectors."""
+    paper's Table-1 baseline): each cluster's local decision f_c(x) - rho_c
+    (the global rho for a fully trained equality model), weighted by the
+    inverse GP predictive variance on (a subsample of) its support
+    vectors."""
     W = model.weights[:, None]
     active = model.weights.cpu().numpy() != 0
-    return _bcm_scores(model, Xq, W, active, noise, max_sv_per_cluster)[:, 0]
+    rho_c = getattr(model, "rho_clusters", None)
+    offsets = (torch.as_tensor(rho_c).double().cpu().numpy()
+               if rho_c is not None
+               else np.full(model.partition.k, _offset(model)))
+    return _bcm_scores(model, Xq, W, active, noise, max_sv_per_cluster,
+                       offsets=offsets)[:, 0]
 
 
 def _bcm_scores(model, Xq, W: torch.Tensor, active: np.ndarray, noise: float,
-                max_sv_per_cluster: int) -> torch.Tensor:
+                max_sv_per_cluster: int,
+                offsets: Optional[np.ndarray] = None) -> torch.Tensor:
     """Shared BCM combination: W is (n, C) decision weights, ``active``
-    marks the support vectors eligible per cluster.  The GP predictive
-    variance is label-independent, so one variance per cluster weights all
-    C outputs.  The solves run in float64, as the reference's do."""
+    marks the support vectors eligible per cluster, ``offsets`` (k,) is
+    subtracted from cluster c's local decision before the weighting.  The
+    GP predictive variance is label-independent, so one variance per
+    cluster weights all C outputs.  The solves run in float64, as the
+    reference's do."""
     part = model.partition
     if part is None:
         raise ValueError("BCM prediction requires a partitioned model")
@@ -220,6 +266,8 @@ def _bcm_scores(model, Xq, W: torch.Tensor, active: np.ndarray, noise: float,
                + noise * torch.eye(len(sv), **f64))
         Kqs = gram(kern, Xq, Xs, use_kernels=use).double()
         f_c = Kqs @ W[svt].double()                            # (nq, C)
+        if offsets is not None:
+            f_c = f_c - float(offsets[c])
         sol = torch.linalg.solve(Kss, Kqs.T)                   # (s, nq)
         var = diag - torch.einsum("qs,sq->q", Kqs, sol)
         var = torch.clamp(var, min=noise)[:, None]
@@ -229,13 +277,59 @@ def _bcm_scores(model, Xq, W: torch.Tensor, active: np.ndarray, noise: float,
 
 
 def predict_bcm(model: DCSVMModel, Xq) -> torch.Tensor:
-    return torch.sign(decision_bcm(model, Xq))
+    return _labels(model, decision_bcm(model, Xq))
+
+
+def _pair(y_true, y_pred):
+    y_true = torch.as_tensor(y_true)
+    return y_true, torch.as_tensor(y_pred).to(y_true.device)
 
 
 def accuracy(y_true, y_pred) -> float:
-    y_true = torch.as_tensor(y_true)
-    y_pred = torch.as_tensor(y_pred).to(y_true.device)
+    y_true, y_pred = _pair(y_true, y_pred)
     return float((torch.sign(y_true) == torch.sign(y_pred)).float().mean())
+
+
+def mse(y_true, y_pred) -> float:
+    """Mean squared error (regression)."""
+    y_true, y_pred = _pair(y_true, y_pred)
+    return float(torch.mean((y_true.double() - y_pred.double()) ** 2))
+
+
+def mae(y_true, y_pred) -> float:
+    """Mean absolute error (regression)."""
+    y_true, y_pred = _pair(y_true, y_pred)
+    return float(torch.mean(torch.abs(y_true.double() - y_pred.double())))
+
+
+def _np(v) -> np.ndarray:
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def recall(y_true, y_pred, label: float = 1.0) -> float:
+    """Recall of one class (the minority class of weighted C-SVC)."""
+    t = _np(y_true) == label
+    if not t.any():
+        return float("nan")
+    return float(np.mean(_np(y_pred)[t] == label))
+
+
+def precision(y_true, y_pred, label: float = 1.0) -> float:
+    """Precision of one class (label -1: the outliers of a one-class
+    model)."""
+    p = _np(y_pred) == label
+    if not p.any():
+        return float("nan")
+    return float(np.mean(_np(y_true)[p] == label))
+
+
+def f1(y_true, y_pred, label: float = 1.0) -> float:
+    """F1 of one class (label -1: one-class SVM's anomaly metric)."""
+    t = _np(y_true) == label
+    p = _np(y_pred) == label
+    tp = float(np.sum(t & p))
+    denom = 2.0 * tp + float(np.sum(~t & p)) + float(np.sum(t & ~p))
+    return 0.0 if denom == 0 else 2.0 * tp / denom
 
 
 # ---------------------------------------------------------------------------

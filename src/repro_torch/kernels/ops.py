@@ -265,13 +265,27 @@ def q_rows(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
     return yb[:, None] * (Kb * y[None, :])
 
 
+def cd_chunks(B: int) -> Tuple[Tuple[int, int], ...]:
+    """The consecutive column ranges ``cd_column_update`` launches its
+    kernel on: ``ceil(B / MAX_CD_BLOCK)`` chunks of near-equal width (one
+    launch for B <= 256).  A static function of B, so a CUDA graph captures
+    the same launches every replay."""
+    if int(B) < 1:
+        return ((0, int(B)),)       # split_tile_plan refuses it
+    count = -(-int(B) // MAX_CD_BLOCK)
+    width = -(-int(B) // count)
+    return tuple((a, min(int(B), a + width)) for a in range(0, int(B), width))
+
+
 def cd_column_update(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
                      w: torch.Tensor, kernel, compute_dtype=None
                      ) -> torch.Tensor:
     """dg = y * (K(X, Xb) @ w): X (n, d), y (n,), Xb (B, d), w (B,) -> (n,),
-    B <= 256.  The (n, B) kernel block never reaches device memory.  The
-    CUDA kernel (split-TF32 on the tensor cores) takes every d, in the form
-    ``split_tile_plan(d, B)`` names."""
+    any B >= 1.  The (n, B) kernel block never reaches device memory.  The
+    CUDA kernel (split-TF32 on the tensor cores) takes B <= 256 columns,
+    every d, in the form ``split_tile_plan(d, B)`` names; a wider block is
+    launched once a chunk of ``cd_chunks(B)`` and the chunks' updates are
+    summed in f32 (every chunk shifted by the mean of all of Xb's rows)."""
     _no_policy(compute_dtype)
     if (X.dim() != 2 or Xb.dim() != 2 or y.shape != X.shape[:1]
             or w.shape != Xb.shape[:1] or X.shape[1] != Xb.shape[1]):
@@ -283,16 +297,23 @@ def cd_column_update(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
     _check_cuda(X, y, Xb, w)
     n, d = X.shape
     B = Xb.shape[0]
-    plan = split_tile_plan(d, B)
+    chunks = cd_chunks(B)
+    plans = [split_tile_plan(d, b - a) for a, b in chunks]
     out = torch.empty(n, device=X.device, dtype=torch.float32)
     if n:
         shift = split_shift(Xb, kernel)
-        _run("cd_update", X.data_ptr(), y.data_ptr(), Xb.data_ptr(),
-             w.data_ptr(), _ptr(shift), out.data_ptr(), n, B, d, *plan,
-             *_params(kernel), _stream(X),
-             refused=f"cd_column_update refused Xb ({B}, {d}) with plan "
-                     f"{plan}")
-        LAUNCHES["cd_column_update"] += 1
+        part = out
+        for (a, b), plan in zip(chunks, plans):
+            _run("cd_update", X.data_ptr(), y.data_ptr(), Xb[a:b].data_ptr(),
+                 w[a:b].data_ptr(), _ptr(shift), part.data_ptr(), n, b - a,
+                 d, *plan, *_params(kernel), _stream(X),
+                 refused=f"cd_column_update refused Xb ({b - a}, {d}) with "
+                         f"plan {plan}")
+            LAUNCHES["cd_column_update"] += 1
+            if part is not out:
+                out.add_(part)
+            elif len(chunks) > 1:
+                part = torch.empty_like(out)
     return out
 
 

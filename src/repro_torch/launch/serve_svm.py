@@ -1,8 +1,10 @@
-"""SVM serving for DC-SVM classifiers (port of ``repro.launch.serve_svm``).
+"""SVM serving for DC-SVM models of every task (port of
+``repro.launch.serve_svm``).
 
-Turns a trained binary ``DCSVMModel`` or a one-vs-all ``MulticlassModel``
-into a compacted, device-resident ``ServingModel`` and serves batched
-requests through one of three strategies:
+Turns a trained ``DCSVMModel`` (C-SVC, weighted C-SVC, nu-SVC, epsilon-SVR,
+one-class SVM) or a one-vs-all ``MulticlassModel`` into a compacted,
+device-resident ``ServingModel`` and serves batched requests through one
+of three strategies:
 
 * ``exact`` -- K(Xq, SV-union) @ W, argmax over classes (paper eq. 10).
 * ``early`` -- paper eq. 11: route each query to its nearest kernel-kmeans
@@ -16,11 +18,17 @@ Export drops every non-SV, packs the per-cluster SV blocks into a dense
 kernel columns where padding would leak), and puts the whole model on the
 device once; the request loop never touches host memory.
 
+Regression models are exported with one beta column and no classes (the
+prediction is the score), models with an offset (one-class SVM, nu-SVC
+with its bias) with one beta column, one class and ``rho`` (and the
+per-cluster ``rho_c`` of an early model): the prediction is +1 where
+score - rho >= 0.
+
     PYTHONPATH=src python -m repro_torch.launch.serve_svm --n 4000 \\
         --classes 3 --strategy early --batch 256 --batches 50 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve_svm --task svr|ocsvm
 
-Only classifiers (``task == "svc"``) are served so far: the regression and
-one-class exports and the async engine raise ``NotImplementedError``.
+The async engine (``--serve-async``) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,7 +46,6 @@ from repro_torch.core.kkmeans import KKMeansModel, assign_points
 from repro_torch.core.multiclass import MulticlassModel, fit_ova
 from repro_torch.core.predict import (_early_program, bucket_size,
                                       early_capacity)
-from repro_torch.core.tasks import CSVC
 from repro_torch.device import resolve_device
 from repro_torch.obs.metrics import MetricsRegistry
 
@@ -48,7 +55,10 @@ class ServingModel(NamedTuple):
 
     Binary classifiers are exported with two weight columns (-w, +w) and
     classes (-1, +1), so the argmax request loop is the same for every
-    model."""
+    classifier; regression with one column and empty ``classes``; a model
+    with an offset with one column, ``classes`` (1,) and ``rho`` (``rho_c``
+    (k,) for an early model, empty otherwise).  ``task`` reads the kind off
+    the shape of ``classes``."""
 
     # routing (implicit kernel-kmeans centers)
     Xm: torch.Tensor       # (m, d)
@@ -64,8 +74,9 @@ class ServingModel(NamedTuple):
     # bcm strategy: Cholesky factor of the regularized masked SV Gram per
     # cluster (identity padding), factored once at export
     Lchol: torch.Tensor    # (k, max_sv, max_sv) lower-triangular
-    classes: torch.Tensor  # (n_classes,)
-    rho: torch.Tensor      # () decision offset (0 for classifiers)
+    classes: torch.Tensor  # (n_classes,): empty for svr, (1,) for ocsvm
+    rho: torch.Tensor      # () decision offset (0 without one)
+    rho_c: torch.Tensor    # (k,) per-cluster offsets of an early model, or (0,)
 
     @property
     def k(self) -> int:
@@ -79,21 +90,30 @@ class ServingModel(NamedTuple):
     def device(self) -> torch.device:
         return self.Xall.device
 
+    @property
+    def task(self) -> str:
+        """"svr" (no classes), "ocsvm" (one) or "svc"."""
+        if self.classes.shape[0] == 0:
+            return "svr"
+        return "ocsvm" if self.classes.shape[0] == 1 else "svc"
 
-def _export_weights(model) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(W (n, n_classes), classes, active (n,)) of a classifier."""
+
+def _export_weights(model
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, float]:
+    """(W (n, columns), classes, active (n,), rho) of a model."""
     if isinstance(model, MulticlassModel):
         W = (model.alpha * model.Y).T.cpu().numpy()
         return (W, np.asarray(model.classes),
-                (model.alpha > 0).any(dim=0).cpu().numpy())
+                (model.alpha > 0).any(dim=0).cpu().numpy(), 0.0)
     task = getattr(model, "task", None)
-    if not isinstance(task, CSVC):
-        raise NotImplementedError(
-            f"serving export of task {getattr(task, 'name', task)!r} is not "
-            "ported yet (svr: ROADMAP A3, ocsvm: ROADMAP A11)")
     w = model.weights.cpu().numpy()
+    if getattr(task, "has_rho_offset", False):
+        return (w[:, None], np.array([1.0], np.float32), w != 0,
+                float(model.rho or 0.0))
+    if getattr(task, "is_regression", False):
+        return w[:, None], np.zeros((0,), np.float32), w != 0, 0.0
     return (np.stack([-w, w], axis=1), np.array([-1.0, 1.0], np.float32),
-            w != 0)
+            w != 0, 0.0)
 
 
 def export_serving_model(model, noise: float = 1e-2,
@@ -112,7 +132,7 @@ def export_serving_model(model, noise: float = 1e-2,
         raise ValueError("serving export requires a partitioned model")
     kern = model.config.kernel
     dev = model.X.device
-    W, classes, active = _export_weights(model)
+    W, classes, active, rho = _export_weights(model)
     X = model.X.cpu().numpy()
     n_cls = W.shape[1]
     d = X.shape[1]
@@ -161,7 +181,15 @@ def export_serving_model(model, noise: float = 1e-2,
         Xsv=Xsv_t, Wsv=t(Wsv), svmask=mask_t, Xall=t(X[union]),
         Wall=t(W[union].astype(np.float32)), Lchol=Lchol,
         classes=t(np.asarray(classes)),
-        rho=torch.zeros((), dtype=torch.float32, device=dev))
+        rho=torch.tensor(rho, dtype=torch.float32, device=dev),
+        rho_c=_rho_c(model, dev))
+
+
+def _rho_c(model, dev: torch.device) -> torch.Tensor:
+    rho_c = getattr(model, "rho_clusters", None)
+    if rho_c is None:
+        return torch.zeros((0,), dtype=torch.float32, device=dev)
+    return torch.as_tensor(rho_c, device=dev).to(torch.float32)
 
 
 def _bcm_factor(kern: Kernel, Xsv: torch.Tensor, svmask: torch.Tensor,
@@ -189,8 +217,11 @@ def _bcm_factor(kern: Kernel, Xsv: torch.Tensor, svmask: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _cluster_offsets(sm: ServingModel) -> torch.Tensor:
-    """(k,) decision offsets, one per cluster: the global rho broadcast
-    (0 for classifiers, so applying them is a uniform no-op)."""
+    """(k,) decision offsets, one per cluster: the per-cluster rho_c of an
+    early export, else the global rho broadcast (0 without an offset, so
+    applying them is a uniform no-op)."""
+    if sm.rho_c.shape[0]:
+        return sm.rho_c
     return sm.rho.expand(sm.k)
 
 
@@ -233,7 +264,10 @@ def serve_batch(sm: ServingModel, Xq, kern: Kernel, strategy: str,
                 use_kernels: Optional[bool] = None,
                 bucket: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One batched request: returns (predicted classes, scores).
+    """One batched request: returns (predictions, scores).  Predictions
+    are classes (argmax) for classifiers, the score for ``svr`` and
+    ``score - rho >= 0 -> +1`` for ``ocsvm`` (every scorer has applied the
+    offset already).
 
     ``bucket``, when given, pads the batch with zero query rows to exactly
     ``bucket`` rows before scoring and slices the results back to the real
@@ -261,6 +295,11 @@ def serve_batch(sm: ServingModel, Xq, kern: Kernel, strategy: str,
     else:
         raise ValueError(f"unknown strategy: {strategy}")
     scores = scores[:nq]
+    if sm.task == "svr":
+        return scores[:, 0], scores
+    if sm.task == "ocsvm":
+        raw = scores[:, 0]
+        return torch.where(raw >= 0, 1.0, -1.0).to(raw.dtype), scores
     return sm.classes[torch.argmax(scores, dim=1)], scores
 
 
@@ -379,8 +418,11 @@ def _record_route_metrics(sm: ServingModel, kern: Kernel, blist, buckets,
 
 
 def main(argv=None) -> None:
-    from repro_torch.core.predict import accuracy_multiclass
-    from repro_torch.data import gaussian_mixture_multiclass, train_test_split
+    from repro_torch.core.dcsvm import fit
+    from repro_torch.core.predict import accuracy_multiclass, f1, mse, recall
+    from repro_torch.core.tasks import EpsilonSVR, OneClassSVM
+    from repro_torch.data import (friedman1, gaussian_mixture_multiclass,
+                                  gaussian_with_outliers, train_test_split)
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="svc", choices=["svc", "svr", "ocsvm"])
@@ -394,6 +436,9 @@ def main(argv=None) -> None:
     ap.add_argument("--batches", type=int, default=50)
     ap.add_argument("--gamma", type=float, default=8.0)
     ap.add_argument("--C", type=float, default=4.0)
+    ap.add_argument("--eps", type=float, default=0.1)
+    ap.add_argument("--nu", type=float, default=0.1,
+                    help="one-class support/outlier mass bound")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--metrics-out", default="",
@@ -404,10 +449,6 @@ def main(argv=None) -> None:
                     help="the asyncio continuous-batching engine (not "
                          "ported yet, ROADMAP A16)")
     args = ap.parse_args(argv)
-    if args.task != "svc":
-        raise NotImplementedError(
-            f"--task {args.task} is not ported yet (svr: ROADMAP A3, "
-            "ocsvm: ROADMAP A11)")
     if args.serve_async:
         raise NotImplementedError("--serve-async (the async serving engine) "
                                   "is not ported yet (ROADMAP A16)")
@@ -416,18 +457,42 @@ def main(argv=None) -> None:
     kern = Kernel("rbf", gamma=args.gamma)
     t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
-    X, y = gaussian_mixture_multiclass(rng, args.n, n_classes=args.classes)
+    if args.task == "svr":
+        X, y = friedman1(rng, args.n)
+    elif args.task == "ocsvm":
+        X, y = gaussian_with_outliers(rng, args.n)
+    else:
+        X, y = gaussian_mixture_multiclass(rng, args.n, n_classes=args.classes)
     Xtr, ytr, Xte, yte = train_test_split(rng, X, y)
     cfg = DCSVMConfig(kernel=kern, C=args.C, k=args.k, levels=args.levels,
                       m=min(1000, Xtr.shape[0]), tol=1e-3, seed=args.seed)
-    model = fit_ova(cfg, Xtr, ytr, device=dev)
-    print(f"fit_ova: {time.perf_counter() - t0:.1f}s  "
-          f"n_sv={len(model.sv_union)}/{Xtr.shape[0]}", flush=True)
+    if args.task == "svr":
+        model = fit(cfg, Xtr, ytr, task=EpsilonSVR(eps=args.eps), device=dev)
+        print(f"fit svr: {time.perf_counter() - t0:.1f}s  "
+              f"n_sv={len(model.sv_index)}/{Xtr.shape[0]}", flush=True)
+    elif args.task == "ocsvm":
+        model = fit(cfg, Xtr, task=OneClassSVM(nu=args.nu), device=dev)
+        print(f"fit ocsvm: {time.perf_counter() - t0:.1f}s  "
+              f"n_sv={len(model.sv_index)}/{Xtr.shape[0]}  "
+              f"rho={model.rho:.4f}", flush=True)
+    else:
+        model = fit_ova(cfg, Xtr, ytr, device=dev)
+        print(f"fit_ova: {time.perf_counter() - t0:.1f}s  "
+              f"n_sv={len(model.sv_union)}/{Xtr.shape[0]}", flush=True)
 
     sm = export_serving_model(model)
     pred, _ = serve_batch(sm, Xte, kern, args.strategy)
-    acc = accuracy_multiclass(yte, pred.cpu())
-    print(f"serving accuracy ({args.strategy}): {acc:.4f}", flush=True)
+    pred = pred.cpu()
+    if sm.task == "svr":
+        print(f"serving mse ({args.strategy}): {mse(yte, pred):.5f}",
+              flush=True)
+    elif sm.task == "ocsvm":
+        print(f"serving outlier recall ({args.strategy}): "
+              f"{recall(yte, pred, -1.0):.4f}  f1: {f1(yte, pred, -1.0):.4f}",
+              flush=True)
+    else:
+        acc = accuracy_multiclass(yte, pred)
+        print(f"serving accuracy ({args.strategy}): {acc:.4f}", flush=True)
 
     idx = rng.integers(0, Xte.shape[0], size=(args.batches, args.batch))
     batches = torch.as_tensor(Xte[idx], device=dev)

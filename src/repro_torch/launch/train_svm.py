@@ -1,10 +1,25 @@
-"""DC-SVM end-to-end training command line (binary C-SVC).
+"""DC-SVM end-to-end training command line, every task.
 
     PYTHONPATH=src python -m repro_torch.launch.train_svm --task svc \\
         --dataset covtype_like --n 20000 --levels 3 [--early 2] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --task svr \\
+        --dataset friedman1 --eps 0.1
+    PYTHONPATH=src python -m repro_torch.launch.train_svm \\
+        --task weighted-svc --dataset imbalanced --class-weight 20
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --task one-class \\
+        --dataset outliers --nu 0.1
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --task nu-svc \\
+        --nu 0.3 [--nu-bias] [--eq-block 64]
 
-Prints one line per level and the reference CLI's summary line for ``svc``
-(exact test accuracy, or early prediction at ``--early``).
+Tasks: ``svc`` (hinge C-SVC), ``weighted-svc`` (box ``c_i = C * w_{y_i}``,
+``--class-weight POS[,NEG]``), ``svr`` (epsilon-insensitive regression,
+``--eps``), ``nu-svc`` (``--nu`` bounds the support mass; ``--nu-bias``
+restores the bias, two constraints solved per label group) and
+``one-class`` (label-free; ``--nu`` bounds the outlier fraction).
+``--eq-block B`` runs the equality tasks on the rank-2B blocked engine (1:
+the rank-2 pairwise one).  Prints one line per level and the reference
+CLI's summary line: accuracy (and per-class recall for weighted-svc), MSE
+and MAE for svr, outlier recall, precision and F1 for one-class.
 """
 from __future__ import annotations
 
@@ -13,25 +28,63 @@ import time
 
 import numpy as np
 
-from repro_torch.core import (DCSVMConfig, Kernel, accuracy, fit,
-                              predict_early, predict_exact)
-from repro_torch.data import covtype_like, gaussian_mixture, train_test_split
+from repro_torch.core import (DCSVMConfig, EpsilonSVR, Kernel, NuSVC,
+                              OneClassSVM, WeightedCSVC, accuracy, f1, fit,
+                              mae, mse, precision, predict_early,
+                              predict_exact, recall)
+from repro_torch.data import (checkerboard, covtype_like, friedman1,
+                              gaussian_mixture, gaussian_mixture_imbalanced,
+                              gaussian_with_outliers, sinc1d,
+                              stratified_split, train_test_split,
+                              webspam_like)
 
 DATASETS = {
     "covtype_like": covtype_like,
+    "webspam_like": webspam_like,
+    "checkerboard": lambda rng, n: checkerboard(rng, n, cells=4),
     "gaussian": lambda rng, n: gaussian_mixture(rng, n, d=16,
                                                 modes_per_class=8),
+    "imbalanced": lambda rng, n: gaussian_mixture_imbalanced(rng, n, d=10),
+    "outliers": gaussian_with_outliers,
+    "sinc1d": sinc1d,
+    "friedman1": friedman1,
 }
+REGRESSION_DATASETS = {"sinc1d", "friedman1"}
+ONECLASS_DATASETS = {"outliers"}
+
+
+def parse_class_weight(spec: str):
+    """"POS" or "POS,NEG" -> (w_pos, w_neg)."""
+    parts = [float(v) for v in spec.split(",") if v]
+    if len(parts) == 1:
+        return parts[0], 1.0
+    if len(parts) == 2:
+        return parts[0], parts[1]
+    raise ValueError(f"--class-weight expects POS[,NEG], got {spec!r}")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--task", default="svc", choices=["svc"])
+    ap.add_argument("--task", default="svc",
+                    choices=["svc", "weighted-svc", "svr", "nu-svc",
+                             "one-class"])
     ap.add_argument("--dataset", default="gaussian", choices=sorted(DATASETS))
     ap.add_argument("--n", type=int, default=8000)
     ap.add_argument("--C", type=float, default=4.0)
     ap.add_argument("--gamma", type=float, default=8.0)
     ap.add_argument("--kernel", default="rbf", choices=["rbf", "poly", "linear"])
+    ap.add_argument("--class-weight", default="10",
+                    help="weighted-svc cost multipliers POS[,NEG] on top of C")
+    ap.add_argument("--eps", type=float, default=0.1,
+                    help="epsilon-SVR insensitivity tube half-width")
+    ap.add_argument("--nu", type=float, default=0.1,
+                    help="nu-svc / one-class support-mass bound in (0, 1]")
+    ap.add_argument("--nu-bias", action="store_true",
+                    help="nu-svc only: restore the bias term (two-constraint "
+                         "dual, solved per label group)")
+    ap.add_argument("--eq-block", type=int, default=1,
+                    help="equality-family rank-2B block size B (pairs per "
+                         "outer iteration); 1 = rank-2 pairwise engine")
     ap.add_argument("--levels", type=int, default=3)
     ap.add_argument("--k", type=int, default=4)
     ap.add_argument("--m", type=int, default=1000)
@@ -46,14 +99,38 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    is_reg = args.dataset in REGRESSION_DATASETS
+    if (args.task == "svr") != is_reg:
+        ap.error(f"--task {args.task} needs a "
+                 f"{'regression' if args.task == 'svr' else 'classification'} "
+                 f"dataset; --dataset {args.dataset} is not one "
+                 f"(regression: {sorted(REGRESSION_DATASETS)})")
+    if args.task == "one-class" and args.dataset not in ONECLASS_DATASETS:
+        ap.error(f"--task one-class needs a dataset with inlier/outlier "
+                 f"ground truth for evaluation: {sorted(ONECLASS_DATASETS)}; "
+                 f"got --dataset {args.dataset}")
+    if args.nu_bias and args.task != "nu-svc":
+        ap.error("--nu-bias applies to --task nu-svc only")
+    task = None
+    if args.task == "weighted-svc":
+        w_pos, w_neg = parse_class_weight(args.class_weight)
+        task = WeightedCSVC(w_pos=w_pos, w_neg=w_neg)
+    elif args.task == "svr":
+        task = EpsilonSVR(eps=args.eps)
+    elif args.task == "nu-svc":
+        task = NuSVC(nu=args.nu, with_bias=args.nu_bias)
+    elif args.task == "one-class":
+        task = OneClassSVM(nu=args.nu)
+
     rng = np.random.default_rng(args.seed)
     X, y = DATASETS[args.dataset](rng, args.n)
-    Xtr, ytr, Xte, yte = train_test_split(rng, X, y)
+    split = stratified_split if args.dataset == "imbalanced" else train_test_split
+    Xtr, ytr, Xte, yte = split(rng, X, y)
     extra = {"gram_budget": args.gram_budget} if args.gram_budget > 0 else {}
     cfg = DCSVMConfig(kernel=Kernel(args.kernel, gamma=args.gamma), C=args.C,
                       k=args.k, levels=args.levels, m=args.m, tol=args.tol,
-                      block=args.block, early_stop_level=args.early,
-                      seed=args.seed, **extra)
+                      block=args.block, eq_block_size=args.eq_block,
+                      early_stop_level=args.early, seed=args.seed, **extra)
 
     def cb(level, alpha, st):
         print(f"level {level}: clusters={st.get('clusters', 1)} "
@@ -61,16 +138,29 @@ def main(argv=None) -> None:
               f"train_t={st['train_time']:.1f}s", flush=True)
 
     t0 = time.perf_counter()
-    model = fit(cfg, Xtr, ytr, callback=cb, device=args.device)
+    model = fit(cfg, Xtr, None if args.task == "one-class" else ytr,
+                callback=cb, task=task, device=args.device)
     t_train = time.perf_counter() - t0
     if model.is_early:
-        pred = predict_early(model, Xte)
+        pred = predict_early(model, Xte).cpu()
         mode = f"early prediction (level {args.early})"
     else:
-        pred = predict_exact(model, Xte)
+        pred = predict_exact(model, Xte).cpu()
         mode = "exact"
-    print(f"done in {t_train:.1f}s | {mode} | test acc "
-          f"{accuracy(yte, pred.cpu()):.4f} | "
+    if args.task == "svr":
+        metrics = f"test mse {mse(yte, pred):.5f} mae {mae(yte, pred):.5f}"
+    elif args.task == "one-class":
+        metrics = (f"outlier recall {recall(yte, pred, -1.0):.4f} "
+                   f"precision {precision(yte, pred, -1.0):.4f} "
+                   f"f1 {f1(yte, pred, -1.0):.4f} | pred outlier rate "
+                   f"{float(np.mean(pred.numpy() < 0)):.4f} (nu={args.nu}) "
+                   f"rho={model.rho:.4f}")
+    else:
+        metrics = f"test acc {accuracy(yte, pred):.4f}"
+        if args.task == "weighted-svc":
+            metrics += (f" | recall +1 {recall(yte, pred, 1.0):.4f}"
+                        f" -1 {recall(yte, pred, -1.0):.4f}")
+    print(f"done in {t_train:.1f}s | {mode} | {metrics} | "
           f"SVs {len(model.sv_index)}/{Xtr.shape[0]}", flush=True)
 
 

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import gramop
 from repro_torch.core import solver as S
+from repro_torch.core import tasks as T
 from repro_torch.core.kernels import Kernel
 from repro_torch.kernels import build, ops, ref
 
@@ -348,8 +349,9 @@ def test_cuda_kernel_matvec_split_tf32_batched(cuda_device, kw, d):
 
 @pytest.mark.cuda
 def test_cuda_split_kernels_refuse_what_does_not_fit(cuda_device):
-    """Shapes the split-TF32 kernels do not take (d = 0; cd_column_update
-    at B = 257) raise ValueError and launch nothing."""
+    """Shapes the split-TF32 kernels do not take (d = 0) raise ValueError
+    and launch nothing; the cd_column_update C entry itself still refuses
+    B = 257 (20000, nothing launched): the wrapper chunks wider blocks."""
     kern = Kernel("rbf", gamma=1.0)
     ones = lambda *shape: torch.ones(*shape, device=cuda_device)
     before = dict(ops.LAUNCHES)
@@ -358,13 +360,47 @@ def test_cuda_split_kernels_refuse_what_does_not_fit(cuda_device):
     with pytest.raises(ValueError, match="d >= 1"):
         ops.cd_column_update(ones(10, 0), ones(10), ones(64, 0), ones(64),
                              kern)
-    with pytest.raises(ValueError, match="B <= 256"):
-        ops.cd_column_update(ones(10, 80), ones(10), ones(257, 80), ones(257),
-                             kern)
     with pytest.raises(ValueError, match="d >= 1"):
         ops.kernel_matrix(ones(10, 0), ones(20, 0), kern)
+    X, y, Xb, w = ones(10, 80), ones(10), ones(257, 80), ones(257)
+    out = torch.full((10,), 7.0, device=cuda_device)
+    shift = ops.split_shift(Xb, kern)
+    err = build.kernel_fn("cd_update")(
+        X.data_ptr(), y.data_ptr(), Xb.data_ptr(), w.data_ptr(),
+        shift.data_ptr(), out.data_ptr(), 10, 257, 80, 2, *ops._params(kern),
+        torch.cuda.current_stream(cuda_device).cuda_stream)
     torch.cuda.synchronize()
+    assert err == ops._REFUSED
+    assert bool((out == 7.0).all())
     assert ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [54, 254], ids=["resident", "streamed"])
+@pytest.mark.parametrize("B", [2, 257, 512, 1024])
+def test_cuda_cd_column_update_any_column_count(cuda_device, B, d):
+    """C2: cd_column_update at B = 2 (the rank-2 pair step) and past the
+    kernel's 256 columns (launched once a chunk of ``ops.cd_chunks``, the
+    updates summed in f32), in the resident and streamed forms, against its
+    plain version at a ragged n, to the reference's 2e-4; two calls give
+    identical bits, one launch a chunk each."""
+    rng = np.random.default_rng(B + d)
+    kern = _wide_rbf(d) if d > 54 else Kernel("rbf", gamma=1.0)
+    X = _rows(rng, (1337, d), cuda_device)
+    Xb = X[torch.from_numpy(rng.choice(1337, B, replace=B > 1337))].contiguous()
+    y = torch.sign(torch.tensor(rng.standard_normal(1337), dtype=torch.float32,
+                                device=cuda_device))
+    w = torch.tensor(rng.standard_normal(B), dtype=torch.float32,
+                     device=cuda_device)
+    before = ops.LAUNCHES["cd_column_update"]
+    got = ops.cd_column_update(X, y, Xb, w, kern)
+    again = ops.cd_column_update(X, y, Xb, w, kern)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cd_column_update"] == before + 2 * len(
+        ops.cd_chunks(B))
+    _assert_split_close(got, ref.cd_column_update_ref(X, y, Xb, w,
+                                                      **_rkw(kern)))
+    assert torch.equal(got, again)
 
 
 def _wide_rbf(d):
@@ -548,3 +584,135 @@ def test_cuda_graphed_level0_matches_eager(cuda_device, tol, max_iters):
         assert steps == iters
     else:
         assert iters <= steps < iters + S.SYNC_EVERY
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol,max_iters", [(1e-3, 150), (0.3, 400)],
+                         ids=["to-cap", "converges"])
+def test_cuda_graphed_level0_under_dedup_matches_eager(cuda_device, tol,
+                                                       max_iters):
+    """The graphed level-0 block CD on epsilon-SVR's dual (8192 coordinates
+    over 4096 base rows) with the dedup view, whose rank-B update runs
+    cd_column_update over the base rows with y = 1 and gathers: bit-identical
+    to its eager loop, with the same launches."""
+    rng = np.random.default_rng(9)
+    X = _rows(rng, (4096, 10), cuda_device)
+    yv = torch.tensor(rng.standard_normal(4096), dtype=torch.float32,
+                      device=cuda_device)
+    td = T.EpsilonSVR(eps=0.1).build(X, yv[None], 4.0)
+    Xb, bidx = td.base_view()
+    op = gramop.GramOperator(Xd=td.Xd.contiguous(), s=td.S[0], Xb=Xb,
+                             bidx=bidx, kernel=Kernel("rbf", gamma=1.0),
+                             use_kernels=True)
+    out, launches = {}, {}
+    for graph in (False, True):
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        out[graph] = S.solve_box_qp_op(op, td.Cvec[0], tol=tol,
+                                       max_iters=max_iters, p=td.P[0],
+                                       graph=graph)
+        torch.cuda.synchronize()
+        launches[graph] = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    for field in S.SolveResult._fields:
+        assert torch.equal(getattr(out[False], field),
+                           getattr(out[True], field)), field
+    assert launches[False] == launches[True]
+    assert launches[True]["cd_column_update"] >= int(out[True].iters) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,G", [(1, 1), (1, 2), (32, 2)],
+                         ids=["pairwise", "pairwise-2-groups",
+                              "blocked-2-groups"])
+def test_cuda_eq_matvec_kernels_match_plain(cuda_device, block, G):
+    """solve_eq_qp_matvec through the kernels (cd_column_update at B = 2 a
+    pair step, or 2 * 2 * 32 = 128 columns a blocked step; kernel_matvec a
+    refresh) against the plain versions on the card, n = 8192: the same
+    objective to 1e-4 relative, both at the stopping gap or the cap, and one
+    cd_column_update a step."""
+    rng = np.random.default_rng(3 + block + G)
+    n = 8192
+    X = _rows(rng, (n, 54), cuda_device)
+    y = torch.sign(torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+                                device=cuda_device))
+    gid = (y < 0).long() if G == 2 else None
+    d = torch.full((G,), 0.1 * n / G, device=cuda_device)
+    out, launches = {}, {}
+    for use in (True, False):
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        out[use] = S.solve_eq_qp_matvec(
+            X, y, Kernel("rbf", gamma=1.0), 1.0, 1.0, d, tol=1e-3,
+            max_iters=40 if block > 1 else 3000, use_kernels=use,
+            block=block, gid=gid, n_groups=G)
+        torch.cuda.synchronize()
+        launches[use] = {k: ops.LAUNCHES[k] - before[k] for k in before}
+
+    def objective(res):
+        Kv = ref.kernel_matvec_ref(X, X, y * res.alpha, kind="rbf", gamma=1.0)
+        return 0.5 * float(torch.dot(res.alpha, y * Kv))
+
+    fk, fp = objective(out[True]), objective(out[False])
+    assert abs(fk - fp) <= 1e-4 * abs(fp)
+    for res in out.values():
+        assert float(res.pg_max) <= 1e-3 or int(res.iters) == (
+            40 if block > 1 else 3000)
+    steps = launches[True]["cd_column_update"]
+    it = int(out[True].iters)
+    assert it <= steps and launches[True]["kernel_matvec"] >= 1
+    assert launches[False]["cd_column_update"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["pairwise", "blocked", "matvec-pairwise",
+                                    "matvec-blocked"])
+def test_cuda_graphed_equality_engines_match_eager(cuda_device, engine):
+    """The equality engines with each step replayed as a CUDA graph against
+    their eager loops on the card: bit-identical alpha, grad, iters and
+    pg_max, and the same kernel launches.  Dense: a batch of three masked
+    problems of 512 with two groups; matvec: n = 8192 through the
+    kernels."""
+    rng = np.random.default_rng(21)
+    kern = Kernel("rbf", gamma=1.0)
+    out, launches = {}, {}
+    if engine.startswith("matvec"):
+        n = 8192
+        X = _rows(rng, (n, 54), cuda_device)
+        y = torch.sign(torch.tensor(rng.standard_normal(n),
+                                    dtype=torch.float32, device=cuda_device))
+
+        def run(graph):
+            return S.solve_eq_qp_matvec(
+                X, y, kern, 1.0, 1.0, torch.full((2,), 0.05 * n,
+                                                 device=cuda_device),
+                tol=1e-3, max_iters=30 if engine.endswith("blocked") else 600,
+                use_kernels=True, block=16 if engine.endswith("blocked") else 1,
+                gid=(y < 0).long(), n_groups=2, graph=graph)
+    else:
+        b, n = 3, 512
+        X = _rows(rng, (b, n, 20), cuda_device)
+        y = torch.sign(torch.tensor(rng.standard_normal((b, n)),
+                                    dtype=torch.float32, device=cuda_device))
+        Q = ops.kernel_matrix(X, X, kern) * y[:, :, None] * y[:, None, :]
+        mask = torch.ones((b, n), dtype=torch.bool, device=cuda_device)
+        mask[1, 400:] = False
+        fn = S.solve_eq_qp_block if engine == "blocked" else S.solve_eq_qp
+        extra = dict(block=8, sweeps=2) if engine == "blocked" else {}
+
+        def run(graph):
+            return fn(Q, mask.float(), mask.float(),
+                      torch.full((b, 2), 0.05 * n, device=cuda_device),
+                      tol=1e-3, max_iters=200 if extra else 2000,
+                      active_mask=mask, gid=(y < 0).long(), n_groups=2,
+                      graph=graph, **extra)
+    for graph in (False, True):
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        out[graph] = run(graph)
+        torch.cuda.synchronize()
+        launches[graph] = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    for field in S.SolveResult._fields:
+        assert torch.equal(getattr(out[False], field),
+                           getattr(out[True], field)), field
+    assert launches[False] == launches[True]
+    assert int(out[True].iters.max()) > 0

@@ -167,3 +167,33 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError):
         D.fit(D.DCSVMConfig(), np.zeros((8, 2)), np.ones(8), device="cpu",
               task=OtherTask())
+
+
+@pytest.mark.parametrize("argv,summary", [
+    (["--task", "weighted-svc", "--dataset", "imbalanced"], "recall +1"),
+    (["--task", "svr", "--dataset", "friedman1"], "test mse"),
+    (["--task", "one-class", "--dataset", "outliers"], "outlier recall"),
+    (["--task", "nu-svc", "--nu", "0.3"], "test acc"),
+    (["--task", "nu-svc", "--nu", "0.3", "--nu-bias", "--eq-block", "4"],
+     "test acc"),
+    (["--task", "one-class", "--dataset", "outliers", "--early", "1"],
+     "early prediction (level 1)")],
+    ids=["weighted-svc", "svr", "one-class", "nu-svc", "nu-svc-bias-blocked",
+         "one-class-early"])
+def test_train_cli_runs_every_task_on_the_cpu(capsys, argv, summary):
+    from repro_torch.launch import train_svm
+
+    train_svm.main(argv + ["--n", "500", "--levels", "2", "--m", "200",
+                           "--device", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1].startswith("done in") and summary in out[-1]
+    assert any(line.startswith("level 0") or "early" in out[-1]
+               for line in out)
+
+
+def test_train_cli_rejects_mismatched_dataset():
+    from repro_torch.launch import train_svm
+
+    with pytest.raises(SystemExit):
+        train_svm.main(["--task", "svr", "--dataset", "gaussian",
+                        "--device", "cpu"])

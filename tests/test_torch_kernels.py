@@ -217,3 +217,39 @@ def test_webspam_like_shape_sparsity_labels():
     jzero = float((np.asarray(jX) == 0).mean())
     assert 0.68 <= zero <= 0.74 and abs(zero - jzero) < 0.02
     assert 0.4 <= float((y > 0).mean()) <= 0.6
+
+
+@pytest.mark.parametrize("B", [1, 2, 64, 256, 257, 512, 513, 1024])
+def test_cd_column_update_chunks_cover_any_block(B):
+    """C2: the wrapper launches the kernel on consecutive chunks of at most
+    256 columns (the C entry's limit), near-equal, covering every column
+    once; the chunks are a static function of B (a CUDA graph replays the
+    same launches), and each chunk is a block the split plan takes."""
+    chunks = ops.cd_chunks(B)
+    assert chunks[0][0] == 0 and chunks[-1][1] == B
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(chunks, chunks[1:]))
+    widths = [b - a for a, b in chunks]
+    assert max(widths) <= ops.MAX_CD_BLOCK and max(widths) - min(widths) <= 1
+    assert len(chunks) == -(-B // ops.MAX_CD_BLOCK)
+    for w in widths:
+        ops.split_tile_plan(54, w)
+    with pytest.raises(ValueError, match="B <= 256"):
+        ops.split_tile_plan(54, 257)
+
+
+def test_cd_column_update_wide_block_matches_reference():
+    """A 512-column block through the wrapper (its plain version on the
+    CPU) against the reference's Pallas cd_column_update in interpret mode,
+    which takes any column count, to its 2e-4."""
+    rng = np.random.default_rng(11)
+    X = rng.uniform(size=(300, 6)).astype(np.float32)
+    y = np.where(rng.uniform(size=300) < 0.5, 1.0, -1.0).astype(np.float32)
+    Xb = X[rng.choice(300, 512, replace=True)]
+    w = rng.standard_normal(512).astype(np.float32)
+    kern = Kernel("rbf", gamma=2.0)
+    got = ops.cd_column_update(torch.from_numpy(X), torch.from_numpy(y),
+                               torch.from_numpy(Xb), torch.from_numpy(w),
+                               kern).numpy()
+    want = np.asarray(jops.cd_column_update(X, y, Xb, w,
+                                            JKernel("rbf", gamma=2.0)))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)

@@ -225,9 +225,8 @@ def test_bcm_factor_failure_names_the_cluster():
 
 
 def test_unported_tasks_and_async_raise():
-    for argv in (["--task", "svr"], ["--task", "ocsvm"], ["--serve-async"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            S.main(argv + ["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        S.main(["--serve-async", "--device", "cpu"])
 
 
 def test_cli_serves_on_the_cpu(capsys, tmp_path):
@@ -255,3 +254,98 @@ def test_metrics_registry_matches_reference(tmp_path):
     assert regs[0].to_prometheus_text() == regs[1].to_prometheus_text()
     prom = regs[0].dump(str(tmp_path / "m.json"))
     assert open(prom).read() == regs[1].to_prometheus_text()
+
+
+# ---------------------------------------------------------------------------
+# the regression and one-class exports
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def task_models():
+    """JAX-fitted epsilon-SVR (exact) and one-class SVM (early: per-cluster
+    rho_c) models carried to the port, each exported on both sides with
+    every SV, with their queries."""
+    from repro.core import tasks as JT
+    from repro.data import friedman1 as jfriedman
+    from repro.data import gaussian_with_outliers as joutliers
+    from repro_torch.core import tasks as T
+
+    out = {}
+    for kind, (gen, task, ptask, extra) in {
+            "svr": (jfriedman, JT.EpsilonSVR(eps=0.1), T.EpsilonSVR(eps=0.1),
+                    {}),
+            "ocsvm": (joutliers, JT.OneClassSVM(nu=0.2),
+                      T.OneClassSVM(nu=0.2), {"early_stop_level": 1})}.items():
+        X, y = gen(jax.random.PRNGKey(5), 400)
+        Xtr, ytr, Xte, _ = (np.asarray(a) for a in
+                            jsplit(jax.random.PRNGKey(6), X, y))
+        jcfg = JD.DCSVMConfig(kernel=JKernel("rbf", gamma=GAMMA),
+                              use_pallas=False, **CFG, **extra)
+        jm = JD.fit(jcfg, Xtr, None if kind == "ocsvm" else ytr, task=task)
+        arrays = dict(_partition_arrays(jm), X=jm.X, y=jm.y, alpha=jm.alpha,
+                      beta=jm.beta, rho=jm.rho, rho_clusters=jm.rho_clusters)
+        tm = convert.from_jax_arrays(
+            {k: (None if v is None else np.asarray(v))
+             for k, v in arrays.items()},
+            DCSVMConfig(kernel=Kernel("rbf", gamma=GAMMA), use_kernels=False,
+                        early_stop_level=extra.get("early_stop_level", 0),
+                        **CFG), device="cpu", is_early=jm.is_early,
+            task=ptask)
+        big = 10 ** 6
+        out[kind] = (jm, tm, Xte,
+                     JS.export_serving_model(jm, max_sv_per_cluster=big),
+                     S.export_serving_model(tm, max_sv_per_cluster=big))
+    return out
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("kind", ["svr", "ocsvm"])
+def test_task_exports_serve_like_reference(task_models, kind, strategy):
+    """The svr export (one beta column, no classes) and the ocsvm export
+    (one column, rho and the per-cluster rho_c) served through serve_batch
+    against the reference's serving of the same model, bucketed."""
+    jm, tm, Xte, jsm, psm = task_models[kind]
+    assert psm.task == jsm.task == kind
+    assert psm.classes.shape == jsm.classes.shape
+    np.testing.assert_allclose(psm.rho_c.numpy(), np.asarray(jsm.rho_c),
+                               rtol=0, atol=1e-6)
+    Xq = Xte[:70]
+    jp, js = JS.serve_batch(jsm, Xq, JS.Kernel("rbf", gamma=GAMMA), strategy,
+                            bucket=128)
+    tp, ts = S.serve_batch(psm, Xq, Kernel("rbf", gamma=GAMMA), strategy,
+                           bucket=128)
+    _close(ts.numpy(), js)
+    if kind == "svr":
+        _close(tp.numpy(), jp)
+    else:
+        clear = np.abs(np.asarray(js)[:, 0]) > 1e-4
+        np.testing.assert_array_equal(tp.numpy()[clear],
+                                      np.asarray(jp)[clear])
+
+
+@pytest.mark.parametrize("kind", ["svr", "ocsvm"])
+def test_task_exports_round_trip_to_training_side(task_models, kind):
+    """Exact and early serving of a full export equal the training-side
+    decision_exact and decision_early (early with rho_c) of the model."""
+    _, tm, Xte, _, psm = task_models[kind]
+    kern = Kernel("rbf", gamma=GAMMA)
+    _, se = S.serve_batch(psm, Xte, kern, "exact")
+    _, sl = S.serve_batch(psm, Xte, kern, "early", bucket=128)
+    _close(se[:, 0].numpy(), decision_exact(tm, Xte).numpy())
+    _close(sl[:, 0].numpy(), decision_early(tm, Xte).numpy())
+    if kind == "ocsvm":
+        assert tm.rho_clusters is not None
+        assert psm.rho_c.shape == (psm.k,)
+
+
+@pytest.mark.parametrize("task", ["svr", "ocsvm"])
+def test_cli_serves_regression_and_one_class(capsys, task):
+    S.main(["--task", task, "--n", "500", "--device", "cpu", "--batches",
+            "3", "--batch", "16"])
+    text = capsys.readouterr().out
+    if task == "svr":
+        assert float(text.split("serving mse (early): ")[1].split()[0]) < 1.0
+    else:
+        rec = float(text.split("outlier recall (early): ")[1].split()[0])
+        assert 0.0 <= rec <= 1.0 and "rho=" in text
+    assert "compiles_timed 0" in text
