@@ -22,18 +22,40 @@ port's tree, with the same paths, shapes and dtypes.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.dcsvm import DCSVMConfig, DCSVMModel
+from repro_torch.core.kernels import Kernel
 from repro_torch.core.kkmeans import KKMeansModel, Partition
 from repro_torch.core.multiclass import MulticlassModel
 from repro_torch.core.tasks import CSVC, TASKS, Task
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.param import torch_dtype
+
+
+def config_from(cfg) -> DCSVMConfig:
+    """A port config from a reference ``DCSVMConfig`` (any object with its
+    fields), field for field: ``use_pallas`` becomes ``use_kernels`` and the
+    kernel's hyper-parameters a port ``Kernel``; the precision policy and
+    the memory tiers (``compute_dtype``, ``host_spill``,
+    ``col_cache_cap``) carry over.  A port config is returned as it is."""
+    if isinstance(cfg, DCSVMConfig):
+        return cfg
+    kw = {}
+    for f in dataclasses.fields(DCSVMConfig):
+        src = "use_pallas" if f.name == "use_kernels" else f.name
+        if hasattr(cfg, src):
+            kw[f.name] = getattr(cfg, src)
+    k = kw.get("kernel")
+    if k is not None:
+        kw["kernel"] = Kernel(k.kind, gamma=float(k.gamma),
+                              degree=int(k.degree), coef0=float(k.coef0))
+    return DCSVMConfig(**kw)
 
 
 def from_jax_arrays(d: Dict[str, np.ndarray], cfg: DCSVMConfig,
@@ -45,7 +67,8 @@ def from_jax_arrays(d: Dict[str, np.ndarray], cfg: DCSVMConfig,
     partition keys, "beta", "rho" and "rho_clusters" are optional (an
     exact-only model has no partition, a box-family model no rho).  ``task``
     is a port ``Task`` or a task name of ``core.tasks.TASKS`` built with
-    ``task_params``; default C-SVC."""
+    ``task_params``; default C-SVC.  ``cfg`` is a port config or the
+    reference's (``config_from``)."""
     dev = resolve_device(device)
     t = _tensors(d, dev)
     if task is None:
@@ -53,7 +76,8 @@ def from_jax_arrays(d: Dict[str, np.ndarray], cfg: DCSVMConfig,
     elif not isinstance(task, Task):
         task = TASKS[task](**(task_params or {}))
     rho = d.get("rho")
-    return DCSVMModel(config=cfg, X=t("X"), y=t("y"), alpha=t("alpha"),
+    return DCSVMModel(config=config_from(cfg), X=t("X"), y=t("y"),
+                      alpha=t("alpha"),
                       partition=_partition(d, t), is_early=is_early,
                       level_stats=list(level_stats or []), task=task,
                       beta=t("beta") if "beta" in d else None,
@@ -70,7 +94,7 @@ def from_jax_multiclass(d: Dict[str, np.ndarray], cfg: DCSVMConfig,
     """Build a port ``MulticlassModel`` from a reference one-vs-all model's
     arrays ("X", "classes", "Y", "alpha" and the optional partition keys)."""
     t = _tensors(d, resolve_device(device))
-    return MulticlassModel(config=cfg, X=t("X"),
+    return MulticlassModel(config=config_from(cfg), X=t("X"),
                            classes=np.asarray(d["classes"]), Y=t("Y"),
                            alpha=t("alpha"), partition=_partition(d, t),
                            is_early=is_early,

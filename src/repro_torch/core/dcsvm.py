@@ -43,8 +43,8 @@ Draws = Callable[[int, int, int], Tuple[np.ndarray, np.ndarray]]
 @dataclasses.dataclass(frozen=True)
 class DCSVMConfig:
     """Mirrors the reference config field for field; ``use_pallas`` is
-    ``use_kernels`` here.  Features outside the port so far raise
-    ``NotImplementedError`` when set to a non-default value."""
+    ``use_kernels`` here.  ``trace`` (not ported yet) raises
+    ``NotImplementedError`` when set."""
 
     kernel: Kernel = Kernel("rbf", gamma=1.0)
     C: float = 1.0
@@ -66,24 +66,23 @@ class DCSVMConfig:
     early_stop_level: int = 0      # 0 = exact solve; l >= 1 = stop after level l
     gram_budget: int = DEFAULT_GRAM_BUDGET  # BYTE budget of a level's batch of
                                    # cluster Grams and the plain matvec chunks
-    compute_dtype: Optional[str] = None  # bf16 operand policy (not ported yet)
-    host_spill: bool = False       # out-of-core level 0 (not ported yet)
+    compute_dtype: Optional[str] = None  # Gram product-operand precision, e.g.
+                                   # "bfloat16" (f32 accumulation); None = f32
+    host_spill: bool = False       # level 0 out of core: kernel-row panels
+                                   # spilled to pinned host RAM, device pool
+                                   # + prefetch (core.gramop)
     gram_dedup: bool = True        # dedup view for duplicated dual rows (SVR)
     full_gram_threshold: int = 16384   # above this, level 0 uses the matvec solver
-    col_cache_cap: int = 0         # kernel-column LRU (not ported yet)
+    col_cache_cap: int = 0         # kernel-row LRU slots of the level-0
+                                   # block CD (core.colcache); 0 = none
     shrink_rounds: int = 3
     seed: int = 0
     trace: Optional[int] = None    # convergence-trace ring (not ported yet)
 
     def __post_init__(self):
-        for name, ok in (("compute_dtype", self.compute_dtype is None),
-                         ("host_spill", not self.host_spill),
-                         ("col_cache_cap", self.col_cache_cap <= 0),
-                         ("trace", self.trace is None)):
-            if not ok:
-                raise NotImplementedError(
-                    f"DCSVMConfig.{name}={getattr(self, name)!r} is not "
-                    "ported yet")
+        if self.trace is not None:
+            raise NotImplementedError(
+                f"DCSVMConfig.trace={self.trace!r} is not ported yet")
 
 
 @dataclasses.dataclass
@@ -161,12 +160,15 @@ def _cluster_grams(cfg: DCSVMConfig, Xc: torch.Tensor, counts, sl: slice,
     columns (a cluster's pad slots are its tail, ``Partition.build``).
     Under the dedup view the Gram is computed on the cluster's base rows
     ``Xcb`` and gathered through the slot map ``lbc``: the same values."""
+    cd = cfg.compute_dtype
     if Xcb is None:
-        Kz = gram(cfg.kernel, Xc[sl], Xc[sl], use_kernels=use_kernels)
+        Kz = gram(cfg.kernel, Xc[sl], Xc[sl], use_kernels=use_kernels,
+                  compute_dtype=cd).to(Xc.dtype)
     else:
         # one cluster at a time: a broadcast (b, nc, nc) index would take
         # three int64 copies of the Gram's size
-        Kb = gram(cfg.kernel, Xcb[sl], Xcb[sl], use_kernels=use_kernels)
+        Kb = gram(cfg.kernel, Xcb[sl], Xcb[sl], use_kernels=use_kernels,
+                  compute_dtype=cd).to(Xc.dtype)
         lb = lbc[sl]
         Kz = Kb.new_empty((lb.shape[0], lb.shape[1], lb.shape[1]))
         for j in range(lb.shape[0]):
@@ -242,7 +244,8 @@ def _solve_subset(cfg: DCSVMConfig, td: TaskDual, alpha: torch.Tensor,
     equality task keeps the frozen complement's a'u: each group's target
     is d_g less the complement's share."""
     Xs = td.Xd[idx]
-    Ks = gram(cfg.kernel, Xs, Xs, use_kernels=use_kernels)
+    Ks = gram(cfg.kernel, Xs, Xs, use_kernels=use_kernels,
+              compute_dtype=cfg.compute_dtype).to(Xs.dtype)
     ds = None
     if td.has_equality:
         G = td.n_groups
@@ -275,8 +278,10 @@ def _solve_subset(cfg: DCSVMConfig, td: TaskDual, alpha: torch.Tensor,
 
 
 def _stack(results: List[S.SolveResult]) -> S.SolveResult:
-    return S.SolveResult(*(torch.stack([getattr(r, f) for r in results])
-                           for f in S.SolveResult._fields))
+    return S.SolveResult(*(
+        None if getattr(results[0], f) is None
+        else torch.stack([getattr(r, f) for r in results])
+        for f in S.SolveResult._fields))
 
 
 def _solve_full(cfg: DCSVMConfig, td: TaskDual, alpha: torch.Tensor,
@@ -285,18 +290,29 @@ def _solve_full(cfg: DCSVMConfig, td: TaskDual, alpha: torch.Tensor,
     (n_rows, n_dual) results.  Dense Gram + shrinking up to
     ``full_gram_threshold``, the Gram-free engines above it.  A task with
     duplicated dual rows takes the dedup view (``cfg.gram_dedup``): the
-    dense Gram over the base rows gathered, or the operator's view."""
+    dense Gram over the base rows gathered, or the operator's view.
+    ``host_spill`` takes the box family out of core even under the dense
+    threshold (``gramop.solve_box_qp_spill``, the device budget split over
+    the rows); ``col_cache_cap`` gives the Gram-free box engine a column
+    cache sized within ``gram_budget``."""
     n = td.n_dual
+    cd = cfg.compute_dtype
     dedup = cfg.gram_dedup and td.n_base != n and not td.has_equality
     Xb, bidx = td.base_view() if dedup else (None, None)
     eq = [(td.A[r], td.Deq[r], td.group_ids[r]) for r in range(td.n_rows)] \
         if td.has_equality else None
+    # the flag means "never materialise the level-0 Gram"; the equality
+    # family stays on its dense and Gram-free engines
+    spill = cfg.host_spill and not td.has_equality
+    n_cls = td.n_rows
     results = []
-    if n <= cfg.full_gram_threshold:
+    if n <= cfg.full_gram_threshold and not spill:
         if dedup:
-            K = gram(cfg.kernel, Xb, Xb, use_kernels=use_kernels)[bidx][:, bidx]
+            K = gram(cfg.kernel, Xb, Xb, use_kernels=use_kernels,
+                     compute_dtype=cd).to(Xb.dtype)[bidx][:, bidx]
         else:
-            K = gram(cfg.kernel, td.Xd, td.Xd, use_kernels=use_kernels)
+            K = gram(cfg.kernel, td.Xd, td.Xd, use_kernels=use_kernels,
+                     compute_dtype=cd).to(td.Xd.dtype)
         for r in range(td.n_rows):
             Q = K if r == td.n_rows - 1 else K.clone()
             _signed_gram_(Q, td.S[r])
@@ -319,15 +335,28 @@ def _solve_full(cfg: DCSVMConfig, td: TaskDual, alpha: torch.Tensor,
                 td.Xd, td.S[r], cfg.kernel, td.Cvec[r], a, d,
                 alpha0=alpha[r], tol=cfg.tol, max_iters=cfg.max_iters,
                 use_kernels=use_kernels, p=td.P[r], block=cfg.eq_block_size,
-                sweeps=cfg.sweeps, gid=gid, n_groups=td.n_groups))
+                sweeps=cfg.sweeps, gid=gid, n_groups=td.n_groups,
+                compute_dtype=cd))
             continue
         op = gramop.GramOperator(Xd=td.Xd, s=td.S[r], Xb=Xb, bidx=bidx,
                                  kernel=cfg.kernel, use_kernels=use_kernels,
+                                 compute_dtype=cd,
                                  budget_bytes=cfg.gram_budget)
-        results.append(S.solve_box_qp_op(
-            op, td.Cvec[r], alpha0=alpha[r], tol=cfg.tol,
-            max_iters=cfg.max_iters, block=max(cfg.block, 64),
-            sweeps=cfg.sweeps, p=td.P[r]))
+        kw = dict(alpha0=alpha[r], tol=cfg.tol, max_iters=cfg.max_iters,
+                  block=max(cfg.block, 64), sweeps=cfg.sweeps, p=td.P[r])
+        if spill:
+            # gram_budget is the DEVICE byte budget of the panels
+            results.append(gramop.solve_box_qp_spill(
+                op, td.Cvec[r], device_budget_bytes=cfg.gram_budget
+                // max(n_cls, 1), **kw))
+            continue
+        # the cache buffers count against the same byte budget as the
+        # cluster Grams: bf16 storage fits twice the f32 rows
+        store = op.storage_dtype(torch.float32).itemsize
+        cache_cap = min(cfg.col_cache_cap, n,
+                        cfg.gram_budget // max(op.kwidth * n_cls * store, 1))
+        results.append(S.solve_box_qp_op(op, td.Cvec[r], cache_cap=cache_cap,
+                                         **kw))
     return _stack(results)
 
 
@@ -451,6 +480,14 @@ def _fit_algorithm1(cfg: DCSVMConfig, X: torch.Tensor, td: TaskDual,
               n_sv=int(len(np.unique(base_index[sv0]))),
               iters=int(res.iters.sum()),
               pg_max=float(res.pg_max.max()))
+    if res.cache_hits is not None:
+        hits, misses = int(res.cache_hits.sum()), int(res.cache_misses.sum())
+        st.update(cache_hits=hits, cache_misses=misses,
+                  cache_hit_rate=hits / max(hits + misses, 1))
+    for name in ("cache_evictions", "spills", "spill_hits"):
+        v = getattr(res, name)
+        if v is not None:
+            st[name] = int(v.sum())
     stats.append(st)
     if callback is not None:
         callback(0, alpha, st)
@@ -494,8 +531,8 @@ def _recover_rho(cfg: DCSVMConfig, td: TaskDual, task: Task,
     s = td.S[0]
     g = s * gram_matvec(cfg.kernel, td.Xd, s * alpha[0],
                         use_kernels=resolve_use_kernels(cfg.use_kernels,
-                                                        alpha.device)) \
-        + td.P[0]
+                                                        alpha.device),
+                        compute_dtype=cfg.compute_dtype) + td.P[0]
     return float(task.recover_offset(alpha[0], g, td.Cvec[0], td.A[0],
                                      td.group_ids[0]))
 
@@ -546,7 +583,8 @@ def objective_value(cfg: DCSVMConfig, X: torch.Tensor, y: torch.Tensor,
     Kv = gram_matvec(cfg.kernel, X, y * alpha, num_chunks=num_chunks,
                      use_kernels=resolve_use_kernels(cfg.use_kernels,
                                                      X.device),
-                     budget_bytes=cfg.gram_budget)
+                     budget_bytes=cfg.gram_budget,
+                     compute_dtype=cfg.compute_dtype)
     pvec = torch.as_tensor(p, dtype=alpha.dtype,
                            device=alpha.device).broadcast_to(alpha.shape)
     return 0.5 * torch.dot(alpha, y * Kv) + torch.dot(pvec, alpha)

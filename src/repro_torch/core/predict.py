@@ -32,8 +32,8 @@ from repro_torch.core.kkmeans import KKMeansModel, assign_points
 def bucketed_cluster_scores(kern: Kernel, Xq: torch.Tensor, cid: torch.Tensor,
                             Xblocks: torch.Tensor, Wblocks: torch.Tensor,
                             cap: int, use_kernels: bool = False,
-                            offsets: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            offsets: Optional[torch.Tensor] = None,
+                            compute_dtype=None) -> torch.Tensor:
     """Score every query against ONLY its assigned cluster's block.
 
     ``Xblocks``: (k, nc, d) per-cluster members, ``Wblocks``: (k, nc, C)
@@ -44,7 +44,8 @@ def bucketed_cluster_scores(kern: Kernel, Xq: torch.Tensor, cid: torch.Tensor,
     column, ``kermat`` then a batched product for more.  A cluster holding
     more than ``cap`` queries takes further rounds of the same program.
     The buckets, scores and results stay on the device; the host reads one
-    scalar, the largest in-cluster rank, to know the number of rounds."""
+    scalar, the largest in-cluster rank, to know the number of rounds.
+    ``compute_dtype`` is the model's precision policy."""
     nq, d = Xq.shape
     k = Xblocks.shape[0]
     n_out = Wblocks.shape[-1]
@@ -72,11 +73,15 @@ def bucketed_cluster_scores(kern: Kernel, Xq: torch.Tensor, cid: torch.Tensor,
         qbuf = torch.zeros((k, cap, d), dtype=Xq.dtype, device=dev)
         qbuf[row, col] = Xs[in_r]
         if use_kernels and n_out == 1:
-            scores = ops.kernel_matvec(qbuf, Xblocks, w1, kern)[..., None]
+            scores = ops.kernel_matvec(qbuf, Xblocks, w1, kern,
+                                       compute_dtype=compute_dtype)[..., None]
         elif use_kernels:
-            scores = ops.kernel_matrix(qbuf, Xblocks, kern) @ Wblocks
+            scores = ops.kernel_matrix(qbuf, Xblocks, kern,
+                                       compute_dtype=compute_dtype) @ Wblocks
         else:
-            scores = kern.pairwise(qbuf, Xblocks) @ Wblocks
+            scores = kern.pairwise(qbuf, Xblocks,
+                                   compute_dtype=compute_dtype
+                                   ).to(Wblocks.dtype) @ Wblocks
         out[order[in_r]] = scores[row, col].to(acc)
     if offsets is not None:
         out = out - offsets[cid]
@@ -86,24 +91,33 @@ def bucketed_cluster_scores(kern: Kernel, Xq: torch.Tensor, cid: torch.Tensor,
 def _early_program(kern: Kernel, Xq: torch.Tensor, route_model: KKMeansModel,
                    Xblocks: torch.Tensor, Wblocks: torch.Tensor, cap: int,
                    use_kernels: bool = False,
-                   offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Route + bucketed local scoring (paper eq. 11)."""
+                   offsets: Optional[torch.Tensor] = None,
+                   compute_dtype=None) -> torch.Tensor:
+    """Route + bucketed local scoring (paper eq. 11); the routing stays f32
+    under the policy, as in the reference."""
     cid, _ = assign_points(kern, route_model, Xq, use_kernels=use_kernels)
     return bucketed_cluster_scores(kern, Xq, cid, Xblocks, Wblocks, cap,
-                                   use_kernels=use_kernels, offsets=offsets)
+                                   use_kernels=use_kernels, offsets=offsets,
+                                   compute_dtype=compute_dtype)
 
 
 def _decision_scan(kern: Kernel, Xq: torch.Tensor, Xs: torch.Tensor,
-                   W: torch.Tensor, chunk: int, use_kernels: bool = False
-                   ) -> torch.Tensor:
+                   W: torch.Tensor, chunk: int, use_kernels: bool = False,
+                   compute_dtype=None) -> torch.Tensor:
     """K(Xq, Xs) @ W over SV chunks, never more than an (nq, chunk) kernel
     block live.  W is (ns, C): one weight column per output."""
     out = torch.zeros((Xq.shape[0], W.shape[1]), dtype=Xq.dtype,
                       device=Xq.device)
     for i in range(0, Xs.shape[0], chunk):
-        out = out + gram(kern, Xq, Xs[i:i + chunk],
-                         use_kernels=use_kernels) @ W[i:i + chunk]
+        out = out + gram(kern, Xq, Xs[i:i + chunk], use_kernels=use_kernels,
+                         compute_dtype=compute_dtype).to(W.dtype) \
+            @ W[i:i + chunk]
     return out
+
+
+def _policy(model):
+    """The model's precision policy (``config.compute_dtype``)."""
+    return getattr(model.config, "compute_dtype", None)
 
 
 def _query(model, Xq) -> torch.Tensor:
@@ -154,8 +168,11 @@ def decision_exact(model: DCSVMModel, Xq, chunk: int = 4096,
         from repro_torch.kernels import ops
 
         return ops.kernel_matvec(Xq.contiguous(), Xs.contiguous(),
-                                 w.contiguous(), kern).to(Xq.dtype) - off
-    return _decision_scan(kern, Xq, Xs, w[:, None], chunk)[:, 0] - off
+                                 w.contiguous(), kern,
+                                 compute_dtype=_policy(model)
+                                 ).to(Xq.dtype) - off
+    return _decision_scan(kern, Xq, Xs, w[:, None], chunk,
+                          compute_dtype=_policy(model))[:, 0] - off
 
 
 def predict_exact(model: DCSVMModel, Xq) -> torch.Tensor:
@@ -209,7 +226,8 @@ def decision_early(model: DCSVMModel, Xq,
     off = 0.0 if offsets is not None else _offset(model)
     return _early_program(model.config.kernel, Xq, part.model, Xm, wm, cap,
                           use_kernels=_use_kernels(model, use_kernels),
-                          offsets=offsets)[:, 0] - off
+                          offsets=offsets,
+                          compute_dtype=_policy(model))[:, 0] - off
 
 
 def predict_early(model: DCSVMModel, Xq) -> torch.Tensor:
@@ -219,7 +237,8 @@ def predict_early(model: DCSVMModel, Xq) -> torch.Tensor:
 def decision_bcm(model: DCSVMModel, Xq, noise: float = 1e-2,
                  max_sv_per_cluster: int = 512) -> torch.Tensor:
     """Bayesian Committee Machine combination of the k local models (the
-    paper's Table-1 baseline): each cluster's local decision f_c(x) - rho_c
+    paper's Table-1 baseline; f32 whatever the model's policy, as in the
+    reference): each cluster's local decision f_c(x) - rho_c
     (the global rho for a fully trained equality model), weighted by the
     inverse GP predictive variance on (a subsample of) its support
     vectors."""
@@ -354,7 +373,8 @@ def decision_exact_ova(model, Xq, chunk: int = 4096,
                            device=Xq.device)
     return _decision_scan(model.config.kernel, Xq, model.X[sv],
                           _ova_weights(model)[sv], chunk,
-                          use_kernels=_use_kernels(model, use_kernels))
+                          use_kernels=_use_kernels(model, use_kernels),
+                          compute_dtype=_policy(model))
 
 
 def decision_early_ova(model, Xq,
@@ -368,7 +388,8 @@ def decision_early_ova(model, Xq,
     Xm, wm = _early_blocks(model, _ova_weights(model))
     cap = early_capacity(Xq.shape[0], part.k)
     return _early_program(model.config.kernel, Xq, part.model, Xm, wm, cap,
-                          use_kernels=_use_kernels(model, use_kernels))
+                          use_kernels=_use_kernels(model, use_kernels),
+                          compute_dtype=_policy(model))
 
 
 def decision_bcm_ova(model, Xq, noise: float = 1e-2,

@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core import gramop
+from repro_torch.core import colcache, gramop
 from repro_torch.core.kernels import Kernel
 
 # Steps between host reads of the running mask (the only host syncs of the
@@ -50,6 +50,11 @@ class SolveResult(NamedTuple):
     grad: torch.Tensor      # g = Q a + p at the returned alpha
     iters: torch.Tensor     # outer iterations executed, per problem
     pg_max: torch.Tensor    # final max |projected gradient|, per problem
+    cache_hits: Optional[torch.Tensor] = None       # column-cache rows served
+    cache_misses: Optional[torch.Tensor] = None     # rows recomputed
+    cache_evictions: Optional[torch.Tensor] = None  # live rows/panels displaced
+    spills: Optional[torch.Tensor] = None       # panels written to the host tier
+    spill_hits: Optional[torch.Tensor] = None   # panels re-loaded from it
 
 
 def _broadcast(v, shape, like: torch.Tensor) -> torch.Tensor:
@@ -232,32 +237,61 @@ def solve_box_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
                         tol: float = 1e-3, max_iters: int = 500,
                         block: int = 64, sweeps: int = 4,
                         grad_chunks: int = 16, use_kernels: bool = False,
-                        p=-1.0, Xbase: Optional[torch.Tensor] = None,
+                        cache_cap: int = 0, p=-1.0, compute_dtype=None,
+                        Xbase: Optional[torch.Tensor] = None,
                         base_index: Optional[torch.Tensor] = None
                         ) -> SolveResult:
     """Block greedy CD where the Q columns are recomputed from (X, y) at
     every step; ``y`` is the sign vector of Q = (y y') ∘ K.  With
     ``use_kernels`` the rank-B update is the fused ``cd_column_update``
     kernel and the initial gradient the streaming ``kernel_matvec``.
-    ``Xbase``/``base_index`` (``X == Xbase[base_index]``) select the
-    base-indexed view of ``gramop`` (SVR's mirrored rows)."""
+    ``cache_cap > 0`` keeps a device LRU of raw kernel rows
+    (``core.colcache``, in the operator's storage dtype): a block whose
+    rows are all cached is served from it, else its rows are recomputed
+    (``kermat``) and inserted; the hit, miss and eviction row counts come
+    back on the result.  ``compute_dtype`` is the operator's precision
+    policy; ``Xbase``/``base_index`` (``X == Xbase[base_index]``) select
+    the base-indexed view of ``gramop`` (SVR's mirrored rows)."""
     op = gramop.GramOperator(Xd=X, s=y, Xb=Xbase, bidx=base_index,
-                             kernel=kernel, use_kernels=use_kernels)
+                             kernel=kernel, use_kernels=use_kernels,
+                             compute_dtype=compute_dtype)
     return solve_box_qp_op(op, C, alpha0=alpha0, tol=tol, max_iters=max_iters,
                            block=block, sweeps=sweeps, grad_chunks=grad_chunks,
-                           p=p)
+                           cache_cap=cache_cap, p=p)
+
+
+def _cached_rows(op: "gramop.GramOperator", cache: colcache.ColumnCache,
+                 idx, running, acc):
+    """Signed Q rows (B, n) of block ``idx`` through the column cache.
+    Served (every row cached): gathered from the cache, and the ``kermat``
+    launch returns at once on the device flag; else recomputed and
+    inserted.  Both sides run as device work selected by ``torch.where``,
+    so a CUDA graph replays it (the reference branches with ``lax.cond``)."""
+    keys = op.cache_keys(idx)
+    slots, hit = colcache.lookup(cache, keys)
+    served = torch.all(hit)
+    gathered = cache.cols[torch.where(hit, slots, 0)].to(acc)
+    computed = op.kernel_rows(idx, skip=served).to(acc)
+    kr = torch.where(served, gathered, computed)
+    colcache.assign_(cache, colcache.update(cache, keys, kr, served, slots,
+                                            hit, active=running))
+    return op.expand_rows(kr, idx)
 
 
 def _op_step(op: "gramop.GramOperator", alpha, g, cvec, pg_max, it, running,
-             tol: float, max_iters: int, block: int, sweeps: int, acc):
+             tol: float, max_iters: int, block: int, sweeps: int, acc,
+             cache: Optional[colcache.ColumnCache] = None):
     """One iteration of the level-0 block CD, in place on the state tensors
-    (alpha, g, pg_max, it, running): what the CUDA graph captures and the
-    eager loop runs."""
+    (alpha, g, pg_max, it, running, and the cache's): what the CUDA graph
+    captures and the eager loop runs."""
     sc = torch.abs(proj_grad(alpha, g, cvec))
     idx = _top_block(sc, block)
     step_max = sc.gather(0, idx[:1])[0]
     ab = alpha[idx]
-    if op.use_kernels:
+    if cache is not None:
+        Qrows = _cached_rows(op, cache, idx, running, acc)   # (B, n) signed
+        Qbb = Qrows[:, idx]
+    elif op.use_kernels:
         # fused: the (n, B) column block never reaches device memory; only
         # the (B, B) working-set block is formed
         Qbb = op.qbb(idx).to(acc)
@@ -268,8 +302,11 @@ def _op_step(op: "gramop.GramOperator", alpha, g, cvec, pg_max, it, running,
                              cvec[idx][None], sweeps)[0]
     delta = torch.where(running, new_ab - ab, 0.0)
     alpha[idx] = torch.where(running, new_ab, ab)
-    g.copy_(op.col_update(g, idx, delta) if op.use_kernels
-            else g + Qb @ delta)
+    if cache is not None:
+        g.add_(delta @ Qrows)
+    else:
+        g.copy_(op.col_update(g, idx, delta) if op.use_kernels
+                else g + Qb @ delta)
     pg_max.copy_(torch.where(running, step_max, pg_max))
     it += running
     running &= (pg_max > tol) & (it < max_iters)
@@ -329,10 +366,11 @@ class _Stepper:
 def solve_box_qp_op(op: "gramop.GramOperator", C,
                     alpha0: Optional[torch.Tensor] = None, tol: float = 1e-3,
                     max_iters: int = 500, block: int = 64, sweeps: int = 4,
-                    grad_chunks: int = 16, p=-1.0,
+                    grad_chunks: int = 16, cache_cap: int = 0, p=-1.0,
                     graph: Optional[bool] = None) -> SolveResult:
     """The engine behind ``solve_box_qp_matvec``: block greedy CD against a
-    ``GramOperator`` (one problem).
+    ``GramOperator`` (one problem), with a column cache of
+    ``max(cache_cap, block)`` rows when ``cache_cap > 0``.
 
     ``graph`` (default: on a CUDA device) captures one iteration into a
     CUDA graph after ``GRAPH_WARMUP`` eager ones and replays it
@@ -350,18 +388,27 @@ def solve_box_qp_op(op: "gramop.GramOperator", C,
              else _broadcast(alpha0, (n,), X))
     cvec = _broadcast(C, (n,), X)
     pvec = _broadcast(p, (n,), X)
+    op.prepare()
     g = (op.matvec(alpha, num_chunks=grad_chunks) + pvec).to(acc)
     pg_max = torch.amax(torch.abs(proj_grad(alpha, g, cvec)))
     it = torch.zeros((), dtype=torch.int64, device=X.device)
     running = (pg_max > tol) & (it < max_iters)
+    cache = None
+    if cache_cap > 0:
+        # must hold at least one full block
+        cache = colcache.init(max(cache_cap, block), op.kwidth,
+                              dtype=op.storage_dtype(acc), device=X.device)
     step = _Stepper(lambda: _op_step(op, alpha, g, cvec, pg_max, it, running,
-                                     tol, max_iters, block, sweeps, acc),
-                    X.device, graph)
+                                     tol, max_iters, block, sweeps, acc,
+                                     cache), X.device, graph)
     for k in range(max_iters):
         if k % SYNC_EVERY == 0 and not bool(running):
             break
         step()
-    return SolveResult(alpha, g, it, pg_max)
+    if cache is None:
+        return SolveResult(alpha, g, it, pg_max)
+    return SolveResult(alpha, g, it, pg_max, cache.hits, cache.misses,
+                       cache_evictions=cache.evictions)
 
 
 def solve_with_shrinking(Q: torch.Tensor, C,
@@ -1011,7 +1058,8 @@ def solve_eq_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
                        use_kernels: bool = False, p=0.0,
                        refresh_every: int = 512, block: int = 1,
                        sweeps: int = 4, gid=None, n_groups: int = 1,
-                       graph: Optional[bool] = None) -> SolveResult:
+                       compute_dtype=None, graph: Optional[bool] = None
+                       ) -> SolveResult:
     """Pairwise (``block <= 1``) or rank-2B blocked maximal-violating-pair
     CD with the kernel columns computed on the fly: Q = (y y') ∘ K(X, X)
     is never formed (one problem; ``y`` is the task's sign vector).  With
@@ -1019,7 +1067,8 @@ def solve_eq_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
     ``cd_column_update`` kernel (B = 2, or |idx| = n_groups * 2B columns)
     and every from-scratch gradient the streaming ``kernel_matvec``.
     ``refresh_every`` counts pair steps and is divided by 2B on the blocked
-    path.  ``graph`` as in ``solve_eq_qp``."""
+    path.  ``compute_dtype`` is the operator's precision policy.  ``graph``
+    as in ``solve_eq_qp``."""
     n = X.shape[0]
     shape = (1, n)
     cvec, avec, pvec = (_broadcast(v, (n,), X)[None] for v in (C, a, p))
@@ -1030,7 +1079,8 @@ def solve_eq_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
              if alpha0 is None else _broadcast(alpha0, (n,), X)[None])
     alpha = _project_grouped(alpha, cvec, avec, dvec, gidv, n_groups, mask)
     op = gramop.GramOperator(Xd=X, s=y, kernel=kernel,
-                             use_kernels=use_kernels)
+                             use_kernels=use_kernels,
+                             compute_dtype=compute_dtype).prepare()
     acc = torch.promote_types(X.dtype, torch.float32)
 
     def full_grad(al):
@@ -1059,8 +1109,9 @@ def solve_eq_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
             qij, rank2, full_grad, tol, max_iters, refresh_every, graph)
 
     def q_row(k):
-        # one plain column under the operator's kernel, whatever the backend
-        Kk = kernel.pairwise(X, X[k])[:, 0]
+        # one plain column under the operator's kernel and policy,
+        # whatever the backend
+        Kk = kernel.pairwise(X, X[k], compute_dtype=op._cd())[:, 0]
         return (y * y[k] * Kk).to(acc)[None]
 
     alpha, g = _restore_grouped(alpha, g, q_row, cvec, avec, dvec, gidv,

@@ -25,7 +25,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("kermat", "kermatvec", "cd_update", "kmeans_assign",
-           "flash_attention")
+           "flash_attention", "bf16_gram")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -37,7 +37,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "kermat": ("rt_kermat",
                [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _F, _I, _F,
-                _P]),
+                _P, _P]),
     "kermatvec": ("rt_kernel_matvec",
                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I,
                    _F, _I, _F, _P]),
@@ -49,13 +49,26 @@ SIGNATURES = {
                        _I, _F, _P]),
     "kmeans_assign_scratch": ("rt_kmeans_assign_scratch",
                               [_I, _I, _I, _I, ctypes.POINTER(_L)]),
+    "bf16_pack": ("rt_bf16_pack", [_P, _L, _I, _I, _P, _P, _P]),
+    "kermat_bf16": ("rt_kermat_bf16",
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _I,
+                     _F, _P]),
+    "kernel_matvec_bf16": ("rt_kernel_matvec_bf16",
+                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                            _I, _F, _P]),
+    "cd_update_bf16": ("rt_cd_update_bf16",
+                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                        _F, _P]),
     "flash_attention": ("rt_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
                          _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _P]),
 }
 
 # entry points that live in another entry's source
-_SOURCE_OF = {"kmeans_assign_scratch": "kmeans_assign"}
+_SOURCE_OF = {"kmeans_assign_scratch": "kmeans_assign",
+              "bf16_pack": "bf16_gram", "kermat_bf16": "bf16_gram",
+              "kernel_matvec_bf16": "bf16_gram",
+              "cd_update_bf16": "bf16_gram"}
 
 _lock = threading.Lock()
 _loaded: Dict[str, object] = {}

@@ -74,7 +74,10 @@ __global__ void __launch_bounds__(KM_THREADS, KM_BLOCKS)
 kermat_kernel(const float* __restrict__ X, const float* __restrict__ Y,
               const float* __restrict__ shift, float* __restrict__ out,
               int batch, int n, int m, int d, long long sxb, long long syb,
-              int sym, int vec4, float gamma, int degree, float coef0) {
+              int sym, int vec4, float gamma, int degree, float coef0,
+              const unsigned char* __restrict__ skip) {
+    // the predicated row form: a set flag returns every block at once
+    if (skip != nullptr && *skip) return;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* Xhi = rts_smem_base(smem_raw);   // (KM_T, 2 slabs)
     unsigned char* Xlo = Xhi + KM_SPLIT;
@@ -230,7 +233,7 @@ static cudaError_t km_setup() {   // once, outside the per-launch path
     if (err != cudaSuccess) return err;
     void (*fns[3])(const float*, const float*, const float*, float*, int, int,
                    int, int, long long, long long, int, int, float, int,
-                   float) = {
+                   float, const unsigned char*) = {
         kermat_kernel<KIND_LINEAR>, kermat_kernel<KIND_POLY>,
         kermat_kernel<KIND_RBF>};
     for (auto fn : fns) {
@@ -244,11 +247,14 @@ static cudaError_t km_setup() {   // once, outside the per-launch path
 
 // sym: X and Y are the same tensor (n == m, sxb == syb); the result is then
 // symmetric bit for bit.  shift: (batch, d) for rbf, null otherwise.  A
-// persistent grid: KM_BLOCKS blocks an SM walk the tiles.
+// persistent grid: KM_BLOCKS blocks an SM walk the tiles.  skip: null, or a
+// device flag that, when set, makes the launch compute and write nothing
+// (the cached solver's row form under a CUDA graph).
 extern "C" int rt_kermat(const float* X, const float* Y, const float* shift,
                          float* out, int batch, int n, int m, int d,
                          long long sxb, long long syb, int sym, int kind,
-                         float gamma, int degree, float coef0, void* stream) {
+                         float gamma, int degree, float coef0,
+                         const unsigned char* skip, void* stream) {
     if (batch == 0 || n == 0 || m == 0) return 0;
     if (d < 1 || kind < KIND_LINEAR || kind > KIND_RBF
         || (kind == KIND_RBF && shift == nullptr) || (sym && n != m))
@@ -264,7 +270,7 @@ extern "C" int rt_kermat(const float* X, const float* Y, const float* shift,
 #define KM_LAUNCH(K)                                                          \
     kermat_kernel<K><<<grid, KM_THREADS, KM_SMEM, s>>>(                       \
         X, Y, shift, out, batch, n, m, d, sxb, syb, sym, vec4, gamma, degree, \
-        coef0)
+        coef0, skip)
     if (kind == KIND_RBF) KM_LAUNCH(KIND_RBF);
     else if (kind == KIND_POLY) KM_LAUNCH(KIND_POLY);
     else KM_LAUNCH(KIND_LINEAR);

@@ -24,7 +24,9 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES: Dict[str, int] = {"kermat": 0, "kernel_matvec": 0,
                             "cd_column_update": 0, "kmeans_assign": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "bf16_pack": 0,
+                            "kermat_bf16": 0, "kernel_matvec_bf16": 0,
+                            "cd_column_update_bf16": 0}
 
 _KIND = {"linear": 0, "poly": 1, "rbf": 2}
 _MAX_GRID_YZ = 65535
@@ -62,10 +64,127 @@ def add_launches(counts: Dict[str, int], times: int = 1) -> None:
         LAUNCHES[name] += k * times
 
 
-def _no_policy(compute_dtype) -> None:
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype (the bf16 operand policy) is not ported yet")
+def as_dtype(name) -> torch.dtype:
+    """A dtype from its name ("bfloat16", "float32") or a torch dtype."""
+    dt = name if isinstance(name, torch.dtype) else getattr(torch, str(name),
+                                                            None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def resolve_compute_dtype(compute_dtype, ref_dtype) -> Optional[torch.dtype]:
+    """The precision policy, normalised: ``None``, or a dtype equal to the
+    data's own, keeps the f32 forms and the plain expressions (no cast);
+    else the operand dtype."""
+    if compute_dtype is None:
+        return None
+    cd = as_dtype(compute_dtype)
+    return None if cd == ref_dtype else cd
+
+
+# --- the bf16 operand forms (csrc/bf16_gram.cu) ----------------------------
+
+BF16_ALIGN = 8      # packed rows are padded to a multiple of 8 columns
+
+
+class Bf16Rows(NamedTuple):
+    """An operand packed for the bf16 forms (``pack_bf16``): ``data`` (...,
+    rows, dp) bfloat16, the rows rounded to nearest even and padded with
+    zero columns to ``dp = bf16_width(d)``; ``norms`` (..., rows) the f32
+    squared norms of the rounded rows.  The Gram operator packs X once a
+    solve, so the kernels read half the bytes of the f32 rows."""
+    data: torch.Tensor
+    norms: torch.Tensor
+    d: int
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape[:-1]) + (self.d,)
+
+    @property
+    def device(self):
+        return self.data.device
+
+    def dim(self) -> int:
+        return self.data.dim()
+
+    def rounded(self) -> torch.Tensor:
+        """The rounded rows in f32 (exactly the values the kernels read)."""
+        return self.data[..., :self.d].float()
+
+    def index(self, idx) -> "Bf16Rows":
+        """The packed rows ``idx`` (a gather, no rounding)."""
+        return Bf16Rows(self.data[idx], self.norms[idx], self.d)
+
+
+def bf16_width(d: int) -> int:
+    return -(-int(d) // BF16_ALIGN) * BF16_ALIGN
+
+
+def pack_bf16(X: torch.Tensor) -> Bf16Rows:
+    """Round the rows of X (..., rows, d) to bf16 once (``Bf16Rows``).  The
+    CUDA ``bf16_pack`` kernel on a CUDA tensor (float32, contiguous, any
+    d >= 1), its plain version on the CPU."""
+    if isinstance(X, Bf16Rows):
+        return X
+    d = X.shape[-1]
+    dp = bf16_width(d)
+    if d < 1:
+        raise ValueError(f"the bf16 forms take d >= 1, got {d}")
+    if _on_cpu(X):
+        q = X.to(torch.bfloat16)
+        data = torch.nn.functional.pad(q, (0, dp - d))
+        qf = q.float()
+        return Bf16Rows(data, torch.sum(qf * qf, -1), d)
+    _check_cuda(X)
+    data = torch.empty(tuple(X.shape[:-1]) + (dp,), device=X.device,
+                       dtype=torch.bfloat16)
+    norms = torch.empty(tuple(X.shape[:-1]), device=X.device,
+                        dtype=torch.float32)
+    rows = X.numel() // d
+    if rows:
+        _run("bf16_pack", X.data_ptr(), rows, d, dp, data.data_ptr(),
+             norms.data_ptr(), _stream(X))
+        LAUNCHES["bf16_pack"] += 1
+    return Bf16Rows(data, norms, d)
+
+
+def _t(X) -> torch.Tensor:
+    """A tensor of the operand (its packed data for ``Bf16Rows``)."""
+    return X.data if isinstance(X, Bf16Rows) else X
+
+
+def _bf16_operand(X) -> Bf16Rows:
+    """A wrapper's bf16 operand: a packed one as it is, else packed now."""
+    if isinstance(X, Bf16Rows):
+        if not X.data.is_contiguous() or not X.norms.is_contiguous():
+            raise ValueError("the bf16 forms take contiguous packed rows")
+        return X
+    return pack_bf16(X)
+
+
+def _rounded(X, cd: torch.dtype) -> torch.Tensor:
+    return X.rounded() if isinstance(X, Bf16Rows) else ref.rounded(X, cd)
+
+
+def _policy(compute_dtype, *ops_) -> Optional[torch.dtype]:
+    """The wrappers' policy: a packed operand means bf16; else as
+    ``resolve_compute_dtype`` against the first operand's dtype."""
+    packed = any(isinstance(t, Bf16Rows) for t in ops_)
+    first = ops_[0]
+    ref_dtype = torch.float32 if isinstance(first, Bf16Rows) else first.dtype
+    cd = resolve_compute_dtype(compute_dtype, ref_dtype)
+    if packed and cd != torch.bfloat16:
+        raise ValueError("a packed bf16 operand needs compute_dtype="
+                         "'bfloat16'")
+    return cd
+
+
+def _check_lowp_cuda(cd: torch.dtype) -> None:
+    if cd != torch.bfloat16:
+        raise ValueError(f"the CUDA kernels take compute_dtype bfloat16 "
+                         f"(or none), got {cd}")
 
 
 def _params(kernel):
@@ -192,18 +311,21 @@ def _same_tensor(X: torch.Tensor, Y: torch.Tensor) -> bool:
 
 
 def kernel_matrix(X: torch.Tensor, Y: torch.Tensor, kernel,
-                  compute_dtype=None) -> torch.Tensor:
+                  compute_dtype=None, skip: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """K(X, Y): (n, d) x (m, d) -> (n, m), or batched (b, n, d) x (b, m, d)
     -> (b, n, m) in one launch.  The CUDA kernel runs split-TF32 on the
     tensor cores, any d; given the same tensor twice it computes the tiles
     on and above the diagonal and mirrors them, so K(X, X) is symmetric bit
-    for bit."""
-    _no_policy(compute_dtype)
-    if X.dim() not in (2, 3) or Y.dim() != X.dim():
-        raise ValueError(f"kernel_matrix takes two 2-D or two 3-D tensors, "
-                         f"got {tuple(X.shape)} and {tuple(Y.shape)}")
-    if X.shape[-1] != Y.shape[-1] or X.shape[:-2] != Y.shape[:-2]:
-        raise ValueError(f"shape mismatch {tuple(X.shape)} vs {tuple(Y.shape)}")
+    for bit.  ``compute_dtype="bfloat16"`` takes the bf16 form
+    (``kermat_bf16``; X and Y may be packed, ``pack_bf16``).  ``skip``: a
+    one-element bool tensor on the device; where it is set the CUDA launch
+    returns at once and the result is left unwritten (the cached solver's
+    row form under a CUDA graph; the plain version ignores it)."""
+    cd = _policy(compute_dtype, X, Y)
+    if cd is not None:
+        return _kermat_lowp(X, Y, kernel, cd, skip)
+    _shapes_2d3d("kernel_matrix", X, Y)
     if _on_cpu(X, Y):
         return ref.kermat_ref(X, Y, **_ref_kw(kernel))
     _check_cuda(X, Y)
@@ -219,9 +341,56 @@ def kernel_matrix(X: torch.Tensor, Y: torch.Tensor, kernel,
         shift = split_shift(Yb, kernel)
         _run("kermat", Xb.data_ptr(), Yb.data_ptr(), _ptr(shift),
              out.data_ptr(), b, n, m, d, n * d, m * d,
-             int(_same_tensor(X, Y)), *_params(kernel), _stream(X))
+             int(_same_tensor(X, Y)), *_params(kernel), _ptr(_skip(skip, X)),
+             _stream(X))
         LAUNCHES["kermat"] += 1
     return out if X.dim() == 3 else out[0]
+
+
+def _skip(skip: Optional[torch.Tensor], like) -> Optional[torch.Tensor]:
+    if skip is None:
+        return None
+    if (skip.numel() != 1 or skip.dtype != torch.bool
+            or skip.device != like.device):
+        raise ValueError("skip is a one-element bool tensor on the kernel's "
+                         "device")
+    return skip
+
+
+def _shapes_2d3d(name, X, Y) -> None:
+    if X.dim() not in (2, 3) or Y.dim() != X.dim():
+        raise ValueError(f"{name} takes two 2-D or two 3-D operands, got "
+                         f"{tuple(X.shape)} and {tuple(Y.shape)}")
+    if X.shape[-1] != Y.shape[-1] or X.shape[:-2] != Y.shape[:-2]:
+        raise ValueError(f"shape mismatch {tuple(X.shape)} vs "
+                         f"{tuple(Y.shape)}")
+
+
+def _kermat_lowp(X, Y, kernel, cd: torch.dtype, skip) -> torch.Tensor:
+    """kernel_matrix's bf16 form (``kermat_bf16``; the plain version on the
+    CPU).  Given the same operand twice, K(X, X) is symmetric bit for bit."""
+    _shapes_2d3d("kernel_matrix", X, Y)
+    sym = X is Y or (isinstance(X, torch.Tensor) and isinstance(Y, torch.Tensor)
+                     and _same_tensor(X, Y))
+    if _on_cpu(_t(X), _t(Y)):
+        return ref.kermat_rounded(_rounded(X, cd), _rounded(Y, cd),
+                                  **_ref_kw(kernel))
+    _check_lowp_cuda(cd)
+    Xp = _bf16_operand(X)
+    Yp = Xp if sym else _bf16_operand(Y)
+    three = Xp.data.dim() == 3
+    b = Xp.data.shape[0] if three else 1
+    n, m = Xp.data.shape[-2], Yp.data.shape[-2]
+    dp = Xp.data.shape[-1]
+    out = torch.empty((b, n, m), device=Xp.device, dtype=torch.float32)
+    if b and n and m:
+        _run("kermat_bf16", Xp.data.data_ptr(), Xp.norms.data_ptr(),
+             Yp.data.data_ptr(), Yp.norms.data_ptr(), out.data_ptr(), b, n, m,
+             dp, int(sym), _ptr(_skip(skip, Xp.data)), *_params(kernel),
+             _stream(Xp.data),
+             refused=f"kermat_bf16 refused ({b}, {n}, {m}, dp {dp})")
+        LAUNCHES["kermat_bf16"] += 1
+    return out if three else out[0]
 
 
 def kernel_matvec(X: torch.Tensor, Z: torch.Tensor, v: torch.Tensor, kernel,
@@ -229,8 +398,12 @@ def kernel_matvec(X: torch.Tensor, Z: torch.Tensor, v: torch.Tensor, kernel,
     """out = K(X, Z) @ v without materialising K: (n, d), (m, d), (m,) ->
     (n,), or batched (b, n, d), (b, m, d), (b, m) -> (b, n).  The CUDA
     kernel (split-TF32 on the tensor cores) takes every d, in the form
-    ``split_tile_plan(d)`` names."""
-    _no_policy(compute_dtype)
+    ``split_tile_plan(d)`` names.  ``compute_dtype="bfloat16"`` takes the
+    bf16 form (``kernel_matvec_bf16``: every d; X and Z may be packed);
+    v and the contraction stay f32."""
+    cd = _policy(compute_dtype, X, Z)
+    if cd is not None:
+        return _kernel_matvec_lowp(X, Z, v, kernel, cd)
     if X.dim() not in (2, 3) or Z.dim() != X.dim() or v.dim() != X.dim() - 1:
         raise ValueError(f"kernel_matvec shapes {tuple(X.shape)}, "
                          f"{tuple(Z.shape)}, {tuple(v.shape)}")
@@ -256,6 +429,32 @@ def kernel_matvec(X: torch.Tensor, Z: torch.Tensor, v: torch.Tensor, kernel,
              refused=f"kernel_matvec refused d {d} with plan {plan}")
         LAUNCHES["kernel_matvec"] += 1
     return out if X.dim() == 3 else out[0]
+
+
+def _kernel_matvec_lowp(X, Z, v, kernel, cd: torch.dtype) -> torch.Tensor:
+    _shapes_2d3d("kernel_matvec", X, Z)
+    if v.dim() != X.dim() - 1 or tuple(v.shape) != tuple(Z.shape[:-1]):
+        raise ValueError(f"kernel_matvec shapes {tuple(X.shape)}, "
+                         f"{tuple(Z.shape)}, {tuple(v.shape)}")
+    if _on_cpu(_t(X), _t(Z), v):
+        return ref.kernel_matvec_rounded(_rounded(X, cd), _rounded(Z, cd), v,
+                                         **_ref_kw(kernel))
+    _check_lowp_cuda(cd)
+    _check_cuda(v)
+    Xp = _bf16_operand(X)
+    Zp = Xp if Z is X else _bf16_operand(Z)
+    three = Xp.data.dim() == 3
+    b = Xp.data.shape[0] if three else 1
+    n, m = Xp.data.shape[-2], Zp.data.shape[-2]
+    dp = Xp.data.shape[-1]
+    out = torch.empty((b, n), device=v.device, dtype=torch.float32)
+    if b and n:
+        _run("kernel_matvec_bf16", Xp.data.data_ptr(), Xp.norms.data_ptr(),
+             Zp.data.data_ptr(), Zp.norms.data_ptr(), v.data_ptr(),
+             out.data_ptr(), b, n, m, dp, *_params(kernel), _stream(v),
+             refused=f"kernel_matvec_bf16 refused ({b}, {n}, {m}, dp {dp})")
+        LAUNCHES["kernel_matvec_bf16"] += 1
+    return out if three else out[0]
 
 
 def q_rows(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
@@ -285,8 +484,13 @@ def cd_column_update(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
     CUDA kernel (split-TF32 on the tensor cores) takes B <= 256 columns,
     every d, in the form ``split_tile_plan(d, B)`` names; a wider block is
     launched once a chunk of ``cd_chunks(B)`` and the chunks' updates are
-    summed in f32 (every chunk shifted by the mean of all of Xb's rows)."""
-    _no_policy(compute_dtype)
+    summed in f32 (every chunk shifted by the mean of all of Xb's rows).
+    ``compute_dtype="bfloat16"`` takes the bf16 form
+    (``cd_column_update_bf16``: any B, every d, one launch; X and Xb may
+    be packed); y, w and the skinny product stay f32."""
+    cd = _policy(compute_dtype, X, Xb)
+    if cd is not None:
+        return _cd_column_update_lowp(X, y, Xb, w, kernel, cd)
     if (X.dim() != 2 or Xb.dim() != 2 or y.shape != X.shape[:1]
             or w.shape != Xb.shape[:1] or X.shape[1] != Xb.shape[1]):
         raise ValueError(f"cd_column_update shapes {tuple(X.shape)}, "
@@ -314,6 +518,34 @@ def cd_column_update(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
                 out.add_(part)
             elif len(chunks) > 1:
                 part = torch.empty_like(out)
+    return out
+
+
+def _cd_column_update_lowp(X, y, Xb, w, kernel, cd: torch.dtype
+                           ) -> torch.Tensor:
+    if (X.dim() != 2 or Xb.dim() != 2 or tuple(y.shape) != tuple(X.shape[:1])
+            or tuple(w.shape) != tuple(Xb.shape[:1])
+            or X.shape[1] != Xb.shape[1]):
+        raise ValueError(f"cd_column_update shapes {tuple(X.shape)}, "
+                         f"{tuple(y.shape)}, {tuple(Xb.shape)}, "
+                         f"{tuple(w.shape)}")
+    if _on_cpu(_t(X), _t(Xb), y, w):
+        return ref.cd_column_update_rounded(_rounded(X, cd), y,
+                                            _rounded(Xb, cd), w,
+                                            **_ref_kw(kernel))
+    _check_lowp_cuda(cd)
+    _check_cuda(y, w)
+    Xp, Bp = _bf16_operand(X), _bf16_operand(Xb)
+    n, B = Xp.data.shape[0], Bp.data.shape[0]
+    dp = Xp.data.shape[-1]
+    out = torch.empty(n, device=y.device, dtype=torch.float32)
+    if n:
+        _run("cd_update_bf16", Xp.data.data_ptr(), Xp.norms.data_ptr(),
+             y.data_ptr(), Bp.data.data_ptr(), Bp.norms.data_ptr(),
+             w.data_ptr(), out.data_ptr(), n, B, dp, *_params(kernel),
+             _stream(y),
+             refused=f"cd_column_update_bf16 refused ({n}, {B}, dp {dp})")
+        LAUNCHES["cd_column_update_bf16"] += 1
     return out
 
 

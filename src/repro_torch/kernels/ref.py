@@ -56,6 +56,50 @@ def kernel_matvec_ref(X, Z, v, *, kind="rbf", gamma=1.0, degree=3, coef0=0.0):
     return (k @ v.float()[..., None])[..., 0]
 
 
+# --- the bf16 operand forms (compute_dtype="bfloat16", csrc/bf16_gram.cu) --
+#
+# Both operands rounded to bf16 (to nearest even), the products summed in
+# f32, the rbf norms of the rounded rows in f32, the transform in f32; no
+# mean shift.  ``*_rounded`` take rows already rounded and held in f32 (a
+# packed operand's values, exactly); v, w and y stay in their dtype.
+
+def kermat_rounded(Xr, Yr, *, kind="rbf", gamma=1.0, degree=3, coef0=0.0):
+    g = Xr @ Yr.mT
+    if kind == "linear":
+        return g
+    if kind == "poly":
+        return (gamma * g + coef0) ** degree
+    xx = torch.sum(Xr * Xr, -1)[..., :, None]
+    yy = torch.sum(Yr * Yr, -1)[..., None, :]
+    return torch.exp(-gamma * torch.clamp(xx + yy - 2.0 * g, min=0.0))
+
+
+def rounded(X, dtype=torch.bfloat16):
+    """X rounded to ``dtype`` (to nearest even) and held in f32."""
+    return X.to(dtype).float()
+
+
+def kermat_bf16_ref(X, Y, **kw):
+    return kermat_rounded(rounded(X), rounded(Y), **kw)
+
+
+def kernel_matvec_rounded(Xr, Zr, v, **kw):
+    k = kermat_rounded(Xr, Zr, **kw)
+    return (k.to(v.dtype) @ v[..., None])[..., 0]
+
+
+def kernel_matvec_bf16_ref(X, Z, v, **kw):
+    return kernel_matvec_rounded(rounded(X), rounded(Z), v, **kw)
+
+
+def cd_column_update_rounded(Xr, y, Xbr, w, **kw):
+    return y * (kermat_rounded(Xr, Xbr, **kw).to(w.dtype) @ w)
+
+
+def cd_column_update_bf16_ref(X, y, Xb, w, **kw):
+    return cd_column_update_rounded(rounded(X), y, rounded(Xb), w, **kw)
+
+
 # --- split-TF32 (the arithmetic of every SVM kernel in csrc/) --------------
 #
 # x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both rounded to

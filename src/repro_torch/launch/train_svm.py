@@ -10,6 +10,8 @@
         --dataset outliers --nu 0.1
     PYTHONPATH=src python -m repro_torch.launch.train_svm --task nu-svc \\
         --nu 0.3 [--nu-bias] [--eq-block 64]
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --n 20000 \\
+        --compute-dtype bfloat16 --host-spill --gram-budget 268435456
 
 Tasks: ``svc`` (hinge C-SVC), ``weighted-svc`` (box ``c_i = C * w_{y_i}``,
 ``--class-weight POS[,NEG]``), ``svr`` (epsilon-insensitive regression,
@@ -17,9 +19,13 @@ Tasks: ``svc`` (hinge C-SVC), ``weighted-svc`` (box ``c_i = C * w_{y_i}``,
 restores the bias, two constraints solved per label group) and
 ``one-class`` (label-free; ``--nu`` bounds the outlier fraction).
 ``--eq-block B`` runs the equality tasks on the rank-2B blocked engine (1:
-the rank-2 pairwise one).  Prints one line per level and the reference
-CLI's summary line: accuracy (and per-class recall for weighted-svc), MSE
-and MAE for svr, outlier recall, precision and F1 for one-class.
+the rank-2 pairwise one).  ``--compute-dtype bfloat16`` rounds the Gram
+product operands to bf16 (f32 accumulation); ``--host-spill`` solves level
+0 out of core (kernel-row panels in pinned host RAM, a device pool within
+``--gram-budget`` bytes).  Prints one line per level (with level 0's
+cache and spill counters when there are any) and the reference CLI's
+summary line: accuracy (and per-class recall for weighted-svc), MSE and
+MAE for svr, outlier recall, precision and F1 for one-class.
 """
 from __future__ import annotations
 
@@ -50,6 +56,9 @@ DATASETS = {
     "friedman1": friedman1,
 }
 REGRESSION_DATASETS = {"sinc1d", "friedman1"}
+# level 0's memory-tier counters, printed when the fit reports them
+COUNTERS = ("iters", "cache_hits", "cache_misses", "cache_hit_rate",
+            "cache_evictions", "spills", "spill_hits")
 ONECLASS_DATASETS = {"outliers"}
 
 
@@ -92,9 +101,18 @@ def main(argv=None) -> None:
     ap.add_argument("--block", type=int, default=0)
     ap.add_argument("--early", type=int, default=0,
                     help="stop at this level and use early prediction")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="Gram product-operand precision (accumulation stays "
+                         "f32); float32 keeps the default paths")
+    ap.add_argument("--host-spill", action="store_true",
+                    help="level-0 out-of-core solve: kernel-row panels live "
+                         "in host RAM, a device pool holds the working set "
+                         "within --gram-budget bytes")
     ap.add_argument("--gram-budget", type=int, default=0,
-                    help="byte budget for a level's batch of cluster Grams "
-                         "(0 = default)")
+                    help="byte budget for Gram storage tiers: a level's "
+                         "batch of cluster Grams, the column cache, the "
+                         "spill panels (0 = default)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -127,15 +145,19 @@ def main(argv=None) -> None:
     split = stratified_split if args.dataset == "imbalanced" else train_test_split
     Xtr, ytr, Xte, yte = split(rng, X, y)
     extra = {"gram_budget": args.gram_budget} if args.gram_budget > 0 else {}
+    if args.compute_dtype != "float32":     # float32 = the default paths
+        extra["compute_dtype"] = args.compute_dtype
     cfg = DCSVMConfig(kernel=Kernel(args.kernel, gamma=args.gamma), C=args.C,
                       k=args.k, levels=args.levels, m=args.m, tol=args.tol,
                       block=args.block, eq_block_size=args.eq_block,
-                      early_stop_level=args.early, seed=args.seed, **extra)
+                      early_stop_level=args.early, seed=args.seed,
+                      host_spill=args.host_spill, **extra)
 
     def cb(level, alpha, st):
+        counters = "".join(f" {k}={st[k]}" for k in COUNTERS if k in st)
         print(f"level {level}: clusters={st.get('clusters', 1)} "
               f"n_sv={st['n_sv']} cluster_t={st.get('cluster_time', 0):.1f}s "
-              f"train_t={st['train_time']:.1f}s", flush=True)
+              f"train_t={st['train_time']:.1f}s{counters}", flush=True)
 
     t0 = time.perf_counter()
     model = fit(cfg, Xtr, None if args.task == "one-class" else ytr,

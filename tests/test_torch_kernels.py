@@ -156,8 +156,10 @@ def test_wrappers_check_their_inputs():
         ops.cd_column_update(X, torch.ones(8), Y, torch.ones(4), kern)
     with pytest.raises(ValueError):
         ops.kmeans_assign(X, Y, torch.ones(4, 2), torch.ones(2), 1.0)
-    with pytest.raises(NotImplementedError):
-        ops.kernel_matrix(X, Y, kern, compute_dtype="bfloat16")
+    with pytest.raises(ValueError):
+        ops.kernel_matrix(X, Y, kern, compute_dtype="no_such_dtype")
+    with pytest.raises(ValueError):     # a packed operand means bf16
+        ops.kernel_matrix(ops.pack_bf16(X), Y, kern)
 
 
 def _assign_inputs(n, m, k, d, seed):

@@ -333,6 +333,7 @@ def test_level0_graph_keyword_on_the_cpu(use_kernels):
     eager = S.solve_box_qp_op(op, 1.0, tol=1e-4, max_iters=40, block=16,
                               graph=False)
     for field in S.SolveResult._fields:
-        assert torch.equal(getattr(default, field), getattr(eager, field))
+        a, b = getattr(default, field), getattr(eager, field)
+        assert (a is None and b is None) or torch.equal(a, b), field
     with pytest.raises(ValueError, match="CUDA"):
         S.solve_box_qp_op(op, 1.0, max_iters=5, block=16, graph=True)
