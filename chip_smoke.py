@@ -267,6 +267,32 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls captured into one CUDA
+    graph and replayed: the launches run back to back with no host time
+    between them, as inside the level-0 graph (``cuda_ms`` of a short
+    kernel measures the wrapper's host time instead)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    del graph
+    return e0.elapsed_time(e1) / reps
+
+
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -1833,13 +1859,19 @@ def bf16_case(torch, name, c):
         sym = bool(torch.equal(got, got.transpose(-1, -2)))
     del got, want, diff, mine, plain_part, exact
     torch.cuda.empty_cache()
-    ms = cuda_ms(torch, c["run"], c["reps"])
+    eager_ms = cuda_ms(torch, c["run"], c["reps"])
+    # a short kernel's eager calls time the wrapper's host work: its time
+    # is that of graph replays, as the level-0 graph launches it
+    ms = (graph_ms(torch, c["run"], c["graph_reps"]) if c.get("graph_reps")
+          else eager_ms)
     plain_ms = cuda_ms(torch, c["plain"], max(2, c["reps"] // 2))
     mm_ms = cuda_ms(torch, c["matmul"], c["reps"])
     sb, sby, detail = bf16_bound(c["pairs"], c["depth"], c["bytes"])
     of = "1 + sum |K w|" if "mag" in c else "1 + |value|"
-    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=sb,
-               bound_by=sby, bound_detail=detail, matmul_ms=mm_ms,
+    row = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms,
+               timed="graph replays" if c.get("graph_reps") else "eager",
+               plain_ms=plain_ms, bound_ms=sb, bound_by=sby,
+               bound_detail=detail, share_of_bound=sb / ms, matmul_ms=mm_ms,
                max_err_over_1_plus_abs_plain=rel_abs, err_vs_f64=f64["kernel"],
                plain_err_vs_f64=f64["plain"], err_vs_f64_of_1_plus_abs=f64_abs,
                tolerance=f"{c['tol']:.0e} of {of}", shape=c["shape"])
@@ -1855,7 +1887,8 @@ def bf16_case(torch, name, c):
         + (f" bitwise_symmetric={sym}" if sym is not None else "")
         + "".join(f" control[{who}]_vs_f64={e:.3e}"
                   for who, e in controls.items())
-        + f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={sb:.4f} "
+        + f" kernel_ms={ms:.4f} ({row['timed']}; eager calls "
+        f"{eager_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms={sb:.4f} "
         f"({detail}) share_of_bound={sb / ms:.4f} library_ms(bf16 "
         f"torch.matmul, products only)={mm_ms:.4f}")
     if not rel <= c["tol"]:
@@ -1882,6 +1915,80 @@ def drop_last_stage(w):
     out = w.clone()
     out[..., m - (m % MV_STAGE or MV_STAGE):] = 0
     return out
+
+
+def served_row_case(torch, row_form, plain, not_served):
+    """The predicated row form as the cached level 0 runs it: captured into
+    a CUDA graph once, with its device flag set before each replay.  Not
+    served, a replay must agree with the plain version (KERMAT_TOL of 1 +
+    |value|); served, it must leave a NaN-filled output untouched.  Times
+    (graph replays, no host time between launches): served, and not served
+    beside ``not_served``'s eager time; and the served eager call (the
+    wrapper's host time).  Its bound is the one byte of the flag."""
+    flag = torch.tensor(False, device=DEV)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        row_form(flag)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = row_form(flag)
+    want = plain()
+    errs, untouched = [], None
+    for is_served in (False, True, False):
+        out.fill_(float("nan"))
+        flag.fill_(is_served)
+        graph.replay()
+        torch.cuda.synchronize()
+        if is_served:
+            untouched = bool(torch.isnan(out).all())
+        else:
+            errs.append(float(((out - want).abs() / (1 + want.abs())).max()))
+    del want
+
+    def replays(is_served, reps=200):
+        flag.fill_(is_served)
+        graph.replay()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    ms = replays(True)
+    computed_ms = replays(False)
+    flag.fill_(True)
+    eager_ms = cuda_ms(torch, lambda: row_form(flag), 50)
+    del graph, out
+    sb = 1e3 / PEAK_BYTES
+    row = dict(max_abs_err=None, err_not_served=max(errs),
+               served_leaves_output=untouched, ms=ms, eager_ms=eager_ms,
+               not_served_graph_ms=computed_ms,
+               not_served_eager_ms=not_served["eager_ms"], bound_ms=sb,
+               bound_by="bytes", share_of_bound=sb / ms,
+               shape="predicated row form, served (flag set): "
+                     + not_served["shape"])
+    log(f"kernel kermat_bf16 predicated row form in a CUDA graph: served "
+        f"kernel_ms={ms:.4f} (a graph replay a launch; the eager call "
+        f"{eager_ms:.4f}, the wrapper's host time), not served "
+        f"{computed_ms:.4f} (eager {not_served['eager_ms']:.4f}); not served vs "
+        f"plain {max(errs):.3e} (tolerance {KERMAT_TOL:.0e} of 1 + |value|); "
+        f"served left the NaN-filled output untouched: {untouched}; bound "
+        f"{sb:.2e} ms (the flag's byte)")
+    if not max(errs) <= KERMAT_TOL:
+        raise AssertionError(f"the graphed row form disagrees with its plain "
+                             f"version: {max(errs)}")
+    if not untouched:
+        raise AssertionError("the served row form wrote its output")
+    if not ms < 0.5 * computed_ms:
+        raise AssertionError(f"the served row form did not skip its work: "
+                             f"{ms} ms against {computed_ms} not served")
+    return row
 
 
 def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
@@ -1960,7 +2067,7 @@ def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
                                    torch.stack([rbf_f64(q(Xc[i, :F64_ROWS]),
                                                         q(Xc[i]), g)
                                                 for i in range(2)])),
-            symmetric=True, tol=KERMAT_TOL, reps=5,
+            symmetric=True, tol=KERMAT_TOL, reps=5, graph_reps=3,
             shape=f"level-4 Grams ({b}, {nc}, {d}) x ({b}, {nc}, {d}), "
                   "K(X, X), f32 rows packed in the call"),
         "kermat_bf16_bucket": dict(
@@ -1973,7 +2080,7 @@ def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
                                    torch.stack([rbf_f64(q(Qs[i, :F64_ROWS]),
                                                         q(M[i]), g)
                                                 for i in range(k1)])),
-            tol=KERMAT_TOL, reps=3,
+            tol=KERMAT_TOL, reps=3, graph_reps=3,
             shape=f"early-scoring bucket of a {SERVE_BUCKET}-query batch "
                   f"({k1}, {cap_s}, {d}) x ({k1}, {nc1}, {d})"),
         "kermat_bf16_rows": dict(
@@ -1983,7 +2090,7 @@ def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
             matmul=lambda: Xq16[:B] @ Xq16.T,
             pairs=B * n, depth=d, bytes=pbytes(B + n) + 4 * B * n,
             f64=lambda got, want: (got, want, rbf_f64(q(Xtr[:B]), q(Xtr), g)),
-            tol=KERMAT_TOL, reps=20,
+            tol=KERMAT_TOL, reps=20, graph_reps=20,
             shape=f"predicated row form, not served ({B}, {dp} packed) x "
                   f"({n}, {dp} packed)"),
         "kernel_matvec_bf16": dict(
@@ -2046,7 +2153,7 @@ def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
                 rbf_f64(q(Xtr), q(Xtr[:B]), g) @ w.double().abs())),
             controls=lambda: {F32: ops.cd_column_update(Xtr, ys, Xtr[:B], w,
                                                         kern)},
-            tol=MV_BF16_TOL, reps=20,
+            tol=MV_BF16_TOL, reps=20, graph_reps=20,
             shape=f"({n}, {dp} packed) x ({B}, {dp} packed)"),
         "cd_column_update_bf16_dedup": dict(
             run=lambda: ops.cd_column_update(Pf, ones_f, Pf_sel, w, kern,
@@ -2066,7 +2173,7 @@ def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
                 for w_ in (w, w.abs()))),
             controls=lambda: {F32: ops.cd_column_update(
                 Xf, ones_f, Xf[:B], w, Kernel("rbf", gamma=1.0))},
-            tol=MV_BF16_TOL, reps=50,
+            tol=MV_BF16_TOL, reps=50, graph_reps=20,
             shape=f"dedup route, epsilon-SVR base rows, y = 1, "
                   f"{tuple(Xf.shape)} x ({B}, {Xf.shape[1]})"),
         "bf16_pack": dict(
@@ -2077,7 +2184,7 @@ def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
             f64=lambda got, want: (got.float(), want.float(),
                                    torch.nn.functional.pad(q(Xtr).double(),
                                                            (0, dp - d))),
-            tol=0.0, reps=20,
+            tol=0.0, reps=20, graph_reps=20,
             shape=f"({n}, {d}) f32 -> ({n}, {dp}) bf16 + f32 norms"),
     }
     rows = {name: bf16_case(torch, name, c) for name, c in cases.items()}
@@ -2087,21 +2194,16 @@ def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
     log(f"bf16_pack norms: max error of 1 + |exact| {nrm_err:.3e}")
     if not nrm_err <= 1e-6:
         raise AssertionError(f"bf16_pack norms disagree: {nrm_err}")
-    # the predicated row form once served: the launch returns at once
-    ms_served = cuda_ms(torch, lambda: ops.kernel_matrix(
-        Psel, P, kern, compute_dtype=BF, skip=served), 50)
-    rows["kermat_bf16_rows"]["served_ms"] = ms_served
+    rows["kermat_bf16_rows_served"] = served_row_case(
+        torch, lambda skip: ops.kernel_matrix(Psel, P, kern, compute_dtype=BF,
+                                              skip=skip),
+        cases["kermat_bf16_rows"]["plain"], rows["kermat_bf16_rows"])
     f32_served = cuda_ms(torch, lambda: ops.kernel_matrix(
         Xtr[:B], Xtr, kern, skip=served), 50)
     f32_computed = cuda_ms(torch, lambda: ops.kernel_matrix(
         Xtr[:B], Xtr, kern, skip=computed), 20)
-    log(f"kernel kermat_bf16 predicated row form, served: kernel_ms="
-        f"{ms_served:.4f} (not served {rows['kermat_bf16_rows']['ms']:.4f}); "
-        f"f32 kermat row form served {f32_served:.4f} ms, not served "
-        f"{f32_computed:.4f} ms")
-    if not ms_served < 0.5 * rows["kermat_bf16_rows"]["ms"]:
-        raise AssertionError(f"the served row form did not skip its work: "
-                             f"{ms_served} ms")
+    log(f"f32 kermat row form (host-timed): served {f32_served:.4f} ms, not "
+        f"served {f32_computed:.4f} ms")
     return rows
 
 
@@ -2165,7 +2267,11 @@ def phase_bf16_main(torch, Xtr, ytr, Xte, yte, cfg, main):
         if dv.shape != yte.shape or not bool(torch.isfinite(dv).all()):
             raise AssertionError(f"bf16 {name} decisions malformed")
     block = max(cfg.block, 64)
+    it_ms = 1e3 * st0["train_time"] / max(1, st0["iters"])
     log("bf16 spans_s " + json.dumps(_level_seconds(timer)))
+    log(f"bf16 level 0: {it_ms:.4f} ms an iteration (graphed, the cache "
+        f"inside the graph; {st0['iters']} iterations in "
+        f"{st0['train_time']:.2f} s)")
     log(f"bf16 main: {cfg16.max_iters} iterations a (sub)problem (phase 4: "
         f"{cfg.max_iters}) fit_s={t_fit:.2f} (f32 phase 4: {main['fit_s']:.2f}) "
         f"f32_objective_of_bf16_alpha={obj:.6f} (f32 fit {main['objective']:.6f}"
@@ -2224,7 +2330,7 @@ def phase_bf16_main(torch, Xtr, ytr, Xte, yte, cfg, main):
     del model, early, d_exact, d_early
     torch.cuda.empty_cache()
     return launches, row, dict(fit_s=t_fit, levels_s=_level_seconds(timer),
-                               level0=st0)
+                               level0=st0, level0_ms_per_iteration=it_ms)
 
 
 def phase_spill(torch):
@@ -2512,7 +2618,8 @@ def main() -> int:
     # bf16 fit, whose level 0 runs it
     bf_fit = fit3["covtype_like, compute_dtype bfloat16"]
     bf_extra = {"kermat_bf16": {"bucket": "kermat_bf16_bucket",
-                                "rows": "kermat_bf16_rows"},
+                                "rows": "kermat_bf16_rows",
+                                "rows_served": "kermat_bf16_rows_served"},
                 "kernel_matvec_bf16": {"nxn": "kernel_matvec_bf16_nxn",
                                        "exact": "kernel_matvec_bf16_exact"},
                 "cd_column_update_bf16": {
@@ -2545,7 +2652,9 @@ def main() -> int:
     log("phase 9: " + json.dumps({
         "bf16_main": {"fit_s": bf_main["fit_s"],
                       "levels_s": bf_main["levels_s"],
-                      "level0": bf_main["level0"]},
+                      "level0": bf_main["level0"],
+                      "level0_ms_per_iteration":
+                          bf_main["level0_ms_per_iteration"]},
         "spill": {k: spill[k] for k in ("rounds", "panels", "rows_p",
                                         "cap_panels", "h2d_bytes", "h2d_ms",
                                         "hidden_ms", "h2d_gb_per_s",

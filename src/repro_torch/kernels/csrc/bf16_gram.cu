@@ -21,13 +21,20 @@
 // leave dot products and norms exact; a row is a whole number of 16-byte
 // copies), and the f32 norms of the rounded rows.  The Gram operator keeps
 // X packed for a whole solve, so the products read half the bytes of the
-// f32 rows.
+// f32 rows.  Bound by bytes (the f32 rows in, the packed rows out): a
+// block's threads take 8 columns each, in order along its rows, read
+// with 16-byte loads where the row's alignment allows (8-byte or 4-byte
+// ones where it does not), so a warp reads whole runs of neighbouring
+// rows; then a thread a row sums the staged rounded squares in column
+// order, the fma chain of a thread that walks the row alone, so the norms
+// keep their bits (a fit's unconverged levels follow ulps).
 //
 // Depth: rows are staged in shared memory a slice of at most BG_SLICE
 // columns at a time, each slice rounded up to 32 columns by the copies'
 // zero fill.  Rows of up to BG_SLICE columns are one slice; a wider row
 // takes further slices, summed into the same accumulators in column
-// order, so every d is taken.  The wide forms are instantiations of their
+// order, so every d is taken (cd_update's slices are BG_CD_SLICE columns,
+// past BG_PIPE_DP).  The wide forms are instantiations of their
 // own (WIDE), so that the one-slice forms compile as straight-line code
 // (a slice loop there cost them registers, spills and occupancy).
 //
@@ -37,23 +44,60 @@
 // fragment pairs (k = 2t, 2t+1 and 2t+8, 2t+9 of each step) are physical
 // columns 8t .. 8t + 3 of the chunk (step one) and 8t + 4 .. 8t + 7 (step
 // two).  A and B take the same map, so each product pairs equal columns.
-// Staged rows are bg_ld(slice width) bytes apart, 64 past a multiple of
-// 128, so the 16-byte reads of a quarter warp fall on distinct banks.
+// The matvec form pads staged rows to bg_ld(slice width) bytes, 64 past a
+// multiple of 128; the persistent forms store them unpadded with the 16-byte
+// chunks of odd rows xor-swizzled (bg_swz), a third less shared memory for
+// the same conflict-free reads.  mma.sync suffices: every form is bound by
+// bytes or by its exps, not by the products (wgmma would need its own
+// shared-memory layout and could not lift a byte bound).
 //
 // Forms:
-//   kermat      (n, m) f32 out, 64 x 64 tiles (four warps of 16 rows); for
-//               K(X, X) only the tiles on and above the diagonal, each
-//               written with its mirror (a diagonal tile's upper triangle to
-//               both sides), so the result is symmetric bit for bit.  A
-//               device predicate (skip) makes every block return at once:
-//               the cached solver's row form, which a CUDA graph replays
-//               whether or not the cache served the block.
-//   matvec      out = K(X, Z) v [times y]: a block keeps 256 X rows and
-//               streams Z in 64-row stages (double-buffered), summing each
-//               row's terms in registers; the (n, m) block never reaches
-//               device memory.  Rows wider than one slice stage the X rows
-//               again with each Z stage, a slice at a time.  cd_column_update is this form with Z the
-//               block's B columns and y the row signs.
+//   kermat      (n, m) f32 out, 64 x 64 tiles (four warps of 16 rows),
+//               bound by the output bytes (the level-4 Grams write 3.38 GB
+//               and read 0.10 GB; the row form writes 119 MB of 171 MB).
+//               Stores straight from the mma fragments would write 4 bytes
+//               a lane, half of each sector (the mirror down a column), and
+//               a block a tile would stage its X rows again each tile and
+//               hide no load.  So a persistent grid: each block
+//               walks a contiguous run of tiles (of every batch item; for
+//               K(X, X) only those on and above the diagonal), in a ring
+//               of three Y stages that load while earlier tiles are
+//               multiplied and stored; a row of tiles' X rows load with its
+//               first tile into one of three slots (one for the row form,
+//               staged once a block).  The transform runs in registers
+//               and the tile is staged in
+//               shared memory, each row shifted to the output's 16-byte
+//               grid, so its rows leave as aligned 16-byte stores for
+//               every m; the quad a row shares with the next tile of the
+//               run is carried there and stored whole (two tiles writing
+//               one 32-byte sector in parts slowed misaligned rows).  K(X, X)
+//               stages the tile's transpose too and writes the mirror from
+//               the same values, so it is symmetric bit for bit.  A device
+//               predicate (skip), read once a block, makes every block
+//               return at once: the cached solver's row form, which a CUDA
+//               graph replays whether or not the cache served the block.
+//   matvec      out = K(X, Z) v: a block keeps 256 X rows and streams Z in
+//               64-row stages (double-buffered), summing each row's terms
+//               in registers; the (n, m) block never reaches device
+//               memory.  Rows wider than one slice stage the X rows again
+//               with each Z stage, a slice at a time.
+//   cd_update   out = y * (K(X, Xb) w), bound by the bytes of X's packed
+//               rows (0.0167 ms at the level-0 shape), so the loads must run
+//               under the products and exps, which a block that stages its
+//               rows and then waits for them cannot do.  A persistent
+//               kernel: each block keeps the block rows Xb and
+//               their (norm term, weight) pairs resident in shared memory
+//               (64-row chunks; a B too wide for one residency takes passes
+//               of as many chunks as fit, a row's partial sums kept in its
+//               output entry by the same lane, in order), and each warp
+//               streams its own equal share of X's rows, 16-row tiles of
+//               packed rows with their norms and signs, through its own
+//               ring of four cp.async stages: no block-wide barrier in the
+//               loop, so each warp's loads run ahead of its products, exps
+//               and sums.  A row's terms are summed in registers and by a
+//               quad's xor shuffles in a fixed order, and written once.
+//               Rows wider than BG_PIPE_DP columns take a form that stages
+//               a block's 128-row tile and a chunk a slice at a time.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -64,6 +108,16 @@
 #define BG_MV_ROWS 256        // X rows a matvec block (8 warps x 32)
 #define BG_MV_COLS 64         // Z rows a matvec stage
 #define BG_KM_T 64            // kermat tile
+#define BG_KM_LDT 72          // row stride of the staged tile (floats)
+#define BG_KM_LDM 68          // row stride of its staged transpose (floats)
+#define BG_KM_STAGES 3        // Y stages of the kermat ring (and X slots)
+#define BG_CD_WARPS 8         // warps a cd_update block
+#define BG_CD_WR 16           // X rows a warp's tile
+#define BG_CD_WS 4            // stages of a warp's ring
+#define BG_CD_CW 64           // block rows a chunk
+#define BG_PIPE_DP 128        // widest packed row of the pipelined forms
+#define BG_CD_SLICE 128       // widest slice of cd_update's slice form
+#define BG_SMEM_MAX 232448    // shared memory a block may use (227 KB)
 
 __host__ __device__ __forceinline__ int bg_ld(int sw) {
     const int b = sw * 2;
@@ -147,6 +201,18 @@ __device__ __forceinline__ void bg_load_rows(unsigned char* dst,
     }
 }
 
+// Entries [r0, r0 + R) of an f32 vector into shared memory by 4-byte
+// copies, one a thread from thread `first` on; past `rows` zero.
+__device__ __forceinline__ void bg_load_vec(float* dst, const float* src,
+                                            int rows, int r0, int R, int tid,
+                                            int first) {
+    const int i = tid - first;
+    if (i >= 0 && i < R) {
+        const bool ok = r0 + i < rows;
+        bg_cp(dst + i, src + (ok ? r0 + i : 0), 4, ok ? 4 : 0);
+    }
+}
+
 // One 32-column chunk of a warp's products: MT m16 tiles of A (rows a_row0
 // + 16 mt) against NT n8 tiles of B (rows b_row0 + 8 nt).
 template <int MT, int NT>
@@ -173,28 +239,149 @@ __device__ __forceinline__ void bg_chunk(float (&acc)[MT][NT][4],
     }
 }
 
+template <int MT, int NT>
+__device__ __forceinline__ void bg_zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+}
+
 // ------------------------------------------------------------------ pack --
 
-__global__ void bg_pack_kernel(const float* __restrict__ X, long long rows,
-                               int d, int dp, __nv_bfloat16* __restrict__ out,
-                               float* __restrict__ norms) {
-    const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (r >= rows) return;
-    const float* x = X + r * d;
-    uint4* o = reinterpret_cast<uint4*>(out + r * dp);
-    float nrm = 0.0f;
-    for (int c0 = 0; c0 < dp; c0 += 8) {
+__device__ __forceinline__ float4 bg_ldg4(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float2 bg_ldg2(const float* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+// A block packs R rows.  Its threads round 8 columns at a time, in order
+// along the rows (neighbouring threads on neighbouring addresses), store
+// them to the output and to shared memory; then thread r sums row r's
+// rounded squares in column order, the fma chain of a thread that walks
+// the row alone.  Staged rows are `ldc` 16-byte chunks apart, ldc odd so
+// that the 16-byte reads of a quarter warp fall on distinct banks; rows
+// too wide for shared memory (staged 0) are read back from the output.
+// vec: X is 16-byte aligned.
+__global__ void __launch_bounds__(256)
+bg_pack_kernel(const float* __restrict__ X, long long rows, int d, int dp,
+               int R, int staged, int vec, __nv_bfloat16* __restrict__ out,
+               float* __restrict__ norms) {
+    extern __shared__ __align__(16) unsigned char bg_sm[];
+    uint4* sq = reinterpret_cast<uint4*>(bg_sm);
+    const int per = dp / 8, ldc = per | 1;
+    const long long r0 = (long long)blockIdx.x * R;
+    const int nr = (int)(rows - r0 < R ? rows - r0 : R);
+    for (int i = threadIdx.x; i < nr * per; i += blockDim.x) {
+        const int lr = i / per, j = i % per;
+        const long long r = r0 + lr;
+        const float* x = X + r * d;
+        const int c0 = 8 * j;
+        // the row's alignment: 0 (16 bytes), 2 (8 bytes), else 4 bytes
+        const int al = vec ? (int)((r * d) & 3) : 1;
+        float f[8];
+        if (c0 + 8 <= d && al == 0) {
+            const float4 a = bg_ldg4(x + c0), b = bg_ldg4(x + c0 + 4);
+            f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+            f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+        } else if (c0 + 8 <= d && al == 2) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float2 a = bg_ldg2(x + c0 + 2 * e);
+                f[2 * e] = a.x;
+                f[2 * e + 1] = a.y;
+            }
+        } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+                f[e] = c0 + e < d ? __ldg(x + c0 + e) : 0.0f;
+        }
         __align__(16) __nv_bfloat16 q[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-            const int k = c0 + e;
-            q[e] = __float2bfloat16_rn(k < d ? x[k] : 0.0f);
-            const float f = __bfloat162float(q[e]);
-            nrm = fmaf(f, f, nrm);
-        }
-        o[c0 / 8] = *reinterpret_cast<const uint4*>(q);
+        for (int e = 0; e < 8; ++e) q[e] = __float2bfloat16_rn(f[e]);
+        const uint4 u = *reinterpret_cast<const uint4*>(q);
+        *reinterpret_cast<uint4*>(out + r * dp + c0) = u;
+        if (staged) sq[lr * ldc + j] = u;
     }
-    norms[r] = nrm;
+    __syncthreads();   // the block's rounded rows are staged (or stored)
+    for (int lr = threadIdx.x; lr < nr; lr += blockDim.x) {
+        float nrm = 0.0f;
+        for (int j = 0; j < per; ++j) {
+            const uint4 u = staged ? sq[lr * ldc + j]
+                                   : *reinterpret_cast<const uint4*>(
+                                         out + (r0 + lr) * dp + 8 * j);
+            const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {   // a bf16 is an f32's top half
+                const float v = __uint_as_float(
+                    e % 2 ? w[e / 2] & 0xffff0000u : w[e / 2] << 16);
+                nrm = fmaf(v, v, nrm);
+            }
+        }
+        norms[r0 + lr] = nrm;
+    }
+}
+
+// ---------------------------------------------------- persistent forms --
+//
+// Their staged rows are 2 sw bytes apart, unpadded: where that is a
+// multiple of 128 the 16-byte chunk c of staged row r lies at chunk
+// c ^ 4 (r & 1), so the 16-byte reads of a quarter warp (rows g and g + 1
+// of a fragment, chunks 4 k + t) still fall on distinct banks.
+
+__host__ __device__ __forceinline__ int bg_pld(int sw) { return 2 * sw; }
+
+// The xor of a lane's chunk index (its fragment rows have g's parity).
+__device__ __forceinline__ int bg_swz(int ld, int g) {
+    return (ld & 127) == 0 ? (g & 1) << 2 : 0;
+}
+
+// bg_load_rows into the xor layout.
+__device__ __forceinline__ void bg_load_rows_s(unsigned char* dst,
+                                               const __nv_bfloat16* src,
+                                               int rows, int dp, int c0,
+                                               int w, int ld, int r0, int R,
+                                               int tid, int nthr) {
+    const int per = w / 8;                  // 16-byte chunks a staged row
+    const int sx = (ld & 127) == 0 ? 4 : 0;
+    for (int i = tid; i < R * per; i += nthr) {
+        const int r = i / per, ch = i % per;
+        const int gr = r0 + r, gc = c0 + ch * 8;
+        const bool ok = gr < rows && gc < dp;   // dp a multiple of 8
+        const __nv_bfloat16* s =
+            src + (ok ? (long long)gr * dp + gc : 0LL);
+        bg_cp(dst + r * ld + (ch ^ (r & 1 ? sx : 0)) * 16, s, 16,
+              ok ? 16 : 0);
+    }
+}
+
+// bg_chunk on the xor layout (sx: the lane's chunk xor).
+template <int MT, int NT>
+__device__ __forceinline__ void bg_chunk_s(float (&acc)[MT][NT][4],
+                                           const unsigned char* A,
+                                           const unsigned char* B, int ld,
+                                           int ch, int sx, int g, int t) {
+    const int off = ((4 * ch + t) ^ sx) * 16;
+    uint4 a[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = bg_lds(A + (16 * mt + g) * ld + off);
+        a[mt][1] = bg_lds(A + (16 * mt + g + 8) * ld + off);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+        const uint4 b = bg_lds(B + (8 * nt + g) * ld + off);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+            bg_mma(acc[mt][nt], a[mt][0].x, a[mt][1].x, a[mt][0].y,
+                   a[mt][1].y, b.x, b.y);
+            bg_mma(acc[mt][nt], a[mt][0].z, a[mt][1].z, a[mt][0].w,
+                   a[mt][1].w, b.z, b.w);
+        }
+    }
 }
 
 // ---------------------------------------------------------------- kermat --
@@ -214,92 +401,285 @@ __device__ __forceinline__ void bg_tile_of(long long u, int tr, int tc,
     J = I + (int)(u - first(I));
 }
 
+// A tile of a block's walk: batch item, row and column of tiles, and the
+// count of rows of tiles the walk has entered (it keys the X slots).
+struct BgCursor {
+    long long b;
+    int I, J, seq;
+};
+
+__device__ __forceinline__ BgCursor bg_cursor(long long u, long long per,
+                                              int tr, int tc, int sym) {
+    BgCursor q;
+    q.b = u / per;
+    bg_tile_of(u % per, tr, tc, sym, q.I, q.J);
+    q.seq = 0;
+    return q;
+}
+
+// the next tile: along the row of tiles, then the next row (with sym it
+// starts on the diagonal), then the next batch item
+__device__ __forceinline__ void bg_advance(BgCursor& q, int tr, int tc,
+                                           int sym) {
+    if (++q.J == (sym ? tr : tc)) {
+        ++q.seq;
+        if (++q.I == tr) {
+            ++q.b;
+            q.I = 0;
+        }
+        q.J = sym ? q.I : 0;
+    }
+}
+
+// The epilogue of one kermat tile (rows r0.., columns c0.. of batch item
+// b).  The transform is applied in registers and staged in T (with sym
+// its transpose in Tm), each staged row shifted by s = base % 4 entries,
+// base the flat index of the output row's first entry (s = 0 where the
+// output is not 16-byte aligned): quad q of a staged row then holds the
+// entries whose flat index lies in [base - s + 4 q, base - s + 4 q + 4),
+// so the rows leave as 16-byte stores at aligned addresses whatever m is.
+// A row's last quad, which it shares with the next tile's first, is not
+// stored where the block's next tile is the next one along the row
+// (next): its entries wait in `carry` and complete that tile's first quad
+// (prev), so no 16-byte span is written in two parts, each partly; only
+// at a run's or a row's ends are a quad's entries stored 4 bytes apart.
+// xs, ys: the tile's row and column norms.
+template <int KIND>
+__device__ __forceinline__ void bg_km_store(
+    const float (&acc)[1][8][4], float* T, float* Tm, float* carry,
+    const float* xs, const float* ys, float* __restrict__ out, long long b,
+    int n, int m, int r0, int c0, int sym, int vec, bool prev, bool next,
+    float gamma, int degree, float coef0, int tid, int warp, int g, int t) {
+    const float c = gamma * 1.4426950408889634f;
+    const long long item = b * (long long)n * m;
+    // the shift of output row R (columns from C)
+    auto shift = [&](int R, int C) {
+        return vec ? (int)((item + (long long)R * m + C) & 3) : 0;
+    };
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + g + 8 * h;
+        const float xr = KIND == KIND_RBF ? xs[r] : 0.0f;
+        const int s = shift(r0 + r, c0);
+        float* row = T + r * BG_KM_LDT + s;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+            const int col = 8 * nt + 2 * t;
+            const float v0 = bg_kval<KIND>(acc[0][nt][2 * h], xr, ys[col], c,
+                                           gamma, degree, coef0);
+            const float v1 = bg_kval<KIND>(acc[0][nt][2 * h + 1], xr,
+                                           ys[col + 1], c, gamma, degree,
+                                           coef0);
+            if (s & 1) {
+                row[col] = v0;
+                row[col + 1] = v1;
+            } else {
+                *reinterpret_cast<float2*>(row + col) = make_float2(v0, v1);
+            }
+            if (sym) {
+                Tm[col * BG_KM_LDM + r + shift(c0 + col, r0)] = v0;
+                Tm[(col + 1) * BG_KM_LDM + r + shift(c0 + col + 1, r0)] = v1;
+            }
+        }
+        // the last tile's carried entries ahead of the row's first
+        if (prev && t < s) row[t - s] = carry[4 * r + t];
+    }
+    __syncthreads();
+    const bool diag = sym && r0 == c0, mirror = sym && r0 != c0;
+    if (diag) {   // the lower triangle from the upper one: (r, col < r),
+                  // row r of Tm carrying row r's shift
+        for (int e = tid; e < BG_KM_T * BG_KM_T; e += blockDim.x) {
+            const int r = e / BG_KM_T, col = e % BG_KM_T;
+            if (col < r) {
+                const int p = col + shift(r0 + r, c0);
+                T[r * BG_KM_LDT + p] = Tm[r * BG_KM_LDM + p];
+            }
+        }
+        __syncthreads();
+    }
+    // pass 0: row r of T at (r0 + r, c0..); pass 1, the mirror: row col of
+    // Tm at (c0 + col, r0..).  Staged positions [lo, hi) of a row hold
+    // entries; its whole quads leave a half warp a row, then its two edge
+    // quads a thread each (4-byte stores, or the last into carry)
+    for (int pass = 0; pass < (mirror ? 2 : 1); ++pass) {
+        const float* S = pass ? Tm : T;
+        const int lds = pass ? BG_KM_LDM : BG_KM_LDT;
+        const int R0 = pass ? c0 : r0, C0 = pass ? r0 : c0;
+        const int rows = min(BG_KM_T, (pass ? m : n) - R0);
+        const int cw = min(BG_KM_T, (pass ? n : m) - C0);
+        const bool from_prev = prev && !pass, to_next = next && !pass;
+        const int q = tid & 15;
+        if (vec)
+            for (int r = tid >> 4; r < rows; r += blockDim.x / 16) {
+                const long long base = item + (long long)(R0 + r) * m + C0;
+                const int s = (int)(base & 3);
+                const int lo = from_prev ? 0 : s, hi = s + cw;
+                if (4 * q >= lo && 4 * q + 4 <= hi)
+                    *reinterpret_cast<float4*>(out + (base - s + 4 * q)) =
+                        *reinterpret_cast<const float4*>(S + r * lds + 4 * q);
+            }
+        for (int e = tid; e < 2 * rows; e += blockDim.x) {
+            const int r = e >> 1;
+            const long long base = item + (long long)(R0 + r) * m + C0;
+            const float* src = S + r * lds;
+            if (!vec) {   // unaligned output: a thread a row, 4 bytes apart
+                if (e & 1)
+                    for (int k = 0; k < cw; ++k) out[base + k] = src[k];
+                continue;
+            }
+            const int s = (int)(base & 3);
+            const int lo = from_prev ? 0 : s, hi = s + cw;
+            // the first quad, or the quad holding the last position
+            const int qe = (e & 1) ? (hi - 1) / 4 : 0;
+            if ((e & 1) && qe == 0) continue;   // the first quad holds it
+            const int a = max(4 * qe, lo), z = min(4 * qe + 4, hi);
+            if (a == 4 * qe && z == 4 * qe + 4) continue;   // whole: above
+            if ((e & 1) && to_next) {           // waits for the next tile
+                for (int k = a; k < z; ++k) carry[4 * r + k - 4 * qe] = src[k];
+                continue;
+            }
+            for (int k = a; k < z; ++k) out[base - s + k] = src[k];
+        }
+    }
+}
+
+// Shared memory of the kermat form at slice width sw: xs X slots and ys Y
+// stages of 64 staged rows with their norms, the staged tile, the carried
+// entries, and with sym the tile's transpose.
+__host__ __device__ __forceinline__ int bg_km_smem(int sw, int xs, int ys,
+                                                   int sym) {
+    return (xs + ys) * BG_KM_T * (bg_pld(sw) + 4)
+           + BG_KM_T * (BG_KM_LDT + 4) * 4
+           + (sym ? BG_KM_T * BG_KM_LDM * 4 : 0);
+}
+
 template <int KIND, bool WIDE>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, 3)
 bg_kermat_kernel(const __nv_bfloat16* __restrict__ X,
                  const float* __restrict__ xn,
                  const __nv_bfloat16* __restrict__ Y,
                  const float* __restrict__ yn, float* __restrict__ out,
-                 int n, int m, int dp, int sym,
-                 const unsigned char* __restrict__ skip, float gamma,
-                 int degree, float coef0) {
-    if (skip != nullptr && *skip) return;
+                 int batch, int n, int m, int dp, int sym, int vec,
+                 int xslots, const unsigned char* __restrict__ skip,
+                 float gamma, int degree, float coef0) {
+    if (skip != nullptr && *skip) return;   // the one read of the flag
     extern __shared__ __align__(16) unsigned char bg_sm[];
-    const int sw = bg_sw(dp);
-    const int ld = bg_ld(sw);
-    unsigned char* sx = bg_sm;
-    unsigned char* sy = sx + BG_KM_T * ld;
-    const int b = blockIdx.y;
-    X += (long long)b * n * dp;
-    xn += (long long)b * n;
-    Y += (long long)b * m * dp;
-    yn += (long long)b * m;
-    out += (long long)b * n * m;
+    constexpr int S = WIDE ? 1 : BG_KM_STAGES;
+    const int xsl = WIDE ? 1 : xslots;
+    const int sw = WIDE ? BG_SLICE : bg_sw(dp);
+    const int ld = bg_pld(sw), tile_b = BG_KM_T * ld;
+    unsigned char* sx = bg_sm;                     // X slots
+    unsigned char* sy = sx + xsl * tile_b;         // Y stages
+    float* sxn = (float*)(sy + S * tile_b);        // their norms
+    float* syn = sxn + xsl * BG_KM_T;
+    float* T = syn + S * BG_KM_T;                  // (64, LDT) the tile
+    float* carry = T + BG_KM_T * BG_KM_LDT;        // (64, 4) carried entries
+    float* Tm = carry + BG_KM_T * 4;               // (64, LDM) its transpose
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4, swz = bg_swz(ld, g);
     const int tr = (n + BG_KM_T - 1) / BG_KM_T;
     const int tc = (m + BG_KM_T - 1) / BG_KM_T;
-    int I, J;
-    bg_tile_of(blockIdx.x, tr, tc, sym, I, J);
-    const int r0 = I * BG_KM_T, c0 = J * BG_KM_T;
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int g = lane / 4, t = lane % 4;
+    const long long per = sym ? (long long)tr * (tr + 1) / 2
+                              : (long long)tr * tc;
+    const long long total = per * batch;
+    const long long run = (total + gridDim.x - 1) / gridDim.x;
+    const long long t0 = blockIdx.x * run;
+    const long long count = t0 + run < total ? run : total - t0;
+    if (count <= 0) return;
 
-    float acc[1][8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[0][nt][e] = 0.0f;
-    auto slice = [&](int s0, int w) {
-        bg_load_rows(sx, X, n, dp, s0, w, ld, r0, BG_KM_T, tid, 128);
-        bg_load_rows(sy, Y, m, dp, s0, w, ld, c0, BG_KM_T, tid, 128);
-        bg_commit();
-        bg_wait<0>();
-        __syncthreads();
-        for (int ch = 0; ch < w / 32; ++ch)
-            bg_chunk<1, 8>(acc, sx + 16 * warp * ld, sy, ld, ch, g, t);
+    auto load_x = [&](int slot, const BgCursor& q, int s0, int w) {
+        bg_load_rows_s(sx + slot * tile_b, X + q.b * (long long)n * dp, n,
+                       dp, s0, w, ld, q.I * BG_KM_T, BG_KM_T, tid, 128);
+        if (KIND == KIND_RBF && s0 == 0)
+            bg_load_vec(sxn + slot * BG_KM_T, xn + q.b * n, n, q.I * BG_KM_T,
+                        BG_KM_T, tid, 0);
     };
-    if (!WIDE) {
-        slice(0, sw);
-    } else {
-        for (int s0 = 0; s0 < dp; s0 += BG_SLICE) {
-            if (s0 > 0) __syncthreads();    // the last slice is read
-            slice(s0, bg_sw(dp - s0));
-        }
-    }
+    auto load_y = [&](int st, const BgCursor& q, int s0, int w) {
+        bg_load_rows_s(sy + st * tile_b, Y + q.b * (long long)m * dp, m, dp,
+                       s0, w, ld, q.J * BG_KM_T, BG_KM_T, tid, 128);
+        if (KIND == KIND_RBF && s0 == 0)
+            bg_load_vec(syn + st * BG_KM_T, yn + q.b * m, m, q.J * BG_KM_T,
+                        BG_KM_T, tid, 64);
+    };
 
-    const float c = gamma * 1.4426950408889634f;
-    const bool diag = sym && I == J;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int r = r0 + 16 * warp + g + 8 * h;
-        if (r >= n) continue;
-        const float xr = KIND == KIND_RBF ? xn[r] : 0.0f;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int col = c0 + 8 * nt + 2 * t + e;
-                if (col >= m) continue;
-                if (diag && col < r) continue;
-                const float zc = KIND == KIND_RBF ? yn[col] : 0.0f;
-                const float v = bg_kval<KIND>(acc[0][nt][2 * h + e], xr, zc, c,
-                                              gamma, degree, coef0);
-                out[(long long)r * m + col] = v;
-                if (sym && col != r) out[(long long)col * m + r] = v;
+    BgCursor cc = bg_cursor(t0, per, tr, tc, sym);   // the tile computed
+    float acc[1][8][4];
+    if constexpr (!WIDE) {
+        // a ring of S Y stages: tile k + S - 1 loads while tile k is
+        // multiplied and stored; a row of tiles' X rows load with its first
+        // tile, into slot seq % xsl (the S tiles in flight span at most S
+        // rows of tiles, so no slot in use is overwritten)
+        BgCursor ic = cc;                                // the tile issued
+        int loaded = -1, ist = 0, cst = 0;
+        auto issue = [&]() {
+            if (ic.seq != loaded) {
+                load_x(ic.seq % xsl, ic, 0, sw);
+                loaded = ic.seq;
             }
+            load_y(ist, ic, 0, sw);
+            ist = ist + 1 == S ? 0 : ist + 1;
+            bg_advance(ic, tr, tc, sym);
+        };
+        for (int s = 0; s < S - 1; ++s) {
+            if (s < count) issue();
+            bg_commit();
+        }
+        for (long long k = 0; k < count; ++k) {
+            bg_wait<S - 2>();
+            __syncthreads();   // tile k landed; tile k - 1 is read and stored
+            if (k + S - 1 < count) issue();
+            bg_commit();
+            const int xs = cc.seq % xsl;
+            bg_zero(acc);
+            for (int ch = 0; ch < sw / 32; ++ch)
+                bg_chunk_s<1, 8>(acc, sx + xs * tile_b + 16 * warp * ld,
+                                 sy + cst * tile_b, ld, ch, swz, g, t);
+            // the tiles before and after along the row are this block's
+            // (non-symmetric walks only: a mirror is written down a column)
+            const bool prev = !sym && k > 0 && cc.J > 0;
+            const bool next = !sym && k + 1 < count && cc.J + 1 < tc;
+            bg_km_store<KIND>(acc, T, Tm, carry, sxn + xs * BG_KM_T,
+                              syn + cst * BG_KM_T, out, cc.b, n, m,
+                              cc.I * BG_KM_T, cc.J * BG_KM_T, sym, vec, prev,
+                              next, gamma, degree, coef0, tid, warp, g, t);
+            cst = cst + 1 == S ? 0 : cst + 1;
+            bg_advance(cc, tr, tc, sym);
+        }
+        bg_wait<0>();
+    } else {
+        // wider rows: each tile stages its X and Y rows a slice at a time
+        for (long long k = 0; k < count; ++k) {
+            bg_zero(acc);
+            for (int s0 = 0; s0 < dp; s0 += BG_SLICE) {
+                const int w = bg_sw(dp - s0);
+                __syncthreads();   // the last slice is read; T is stored
+                load_x(0, cc, s0, w);
+                load_y(0, cc, s0, w);
+                bg_commit();
+                bg_wait<0>();
+                __syncthreads();
+                for (int ch = 0; ch < w / 32; ++ch)
+                    bg_chunk_s<1, 8>(acc, sx + 16 * warp * ld, sy, ld, ch,
+                                     swz, g, t);
+            }
+            bg_km_store<KIND>(acc, T, Tm, carry, sxn, syn, out, cc.b, n, m,
+                              cc.I * BG_KM_T, cc.J * BG_KM_T, sym, vec, false,
+                              false, gamma, degree, coef0, tid, warp, g, t);
+            bg_advance(cc, tr, tc, sym);
         }
     }
 }
 
 // ---------------------------------------------------------------- matvec --
 
-template <int KIND, bool SIGN, bool WIDE>
+template <int KIND, bool WIDE>
 __global__ void __launch_bounds__(256)
 bg_matvec_kernel(const __nv_bfloat16* __restrict__ X,
                  const float* __restrict__ xn,
                  const __nv_bfloat16* __restrict__ Z,
                  const float* __restrict__ zn, const float* __restrict__ v,
-                 const float* __restrict__ y, float* __restrict__ out,
-                 int n, int m, int dp, float gamma, int degree, float coef0) {
+                 float* __restrict__ out, int n, int m, int dp, float gamma,
+                 int degree, float coef0) {
     extern __shared__ __align__(16) unsigned char bg_sm[];
     const int sw = bg_sw(dp);
     const int ld = bg_ld(sw);
@@ -331,14 +711,6 @@ bg_matvec_kernel(const __nv_bfloat16* __restrict__ X,
     const float c = gamma * 1.4426950408889634f;
     const unsigned char* A = sx + 32 * warp * ld;
     float acc[2][8][4];
-    auto clear = [&]() {
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-    };
     // the transform of a stage's products, times its weights, into part
     auto fold = [&](const float* zs, const float* vs) {
 #pragma unroll
@@ -384,7 +756,7 @@ bg_matvec_kernel(const __nv_bfloat16* __restrict__ X,
             bg_wait<1>();
             __syncthreads();
             const int st = tile & 1;
-            clear();
+            bg_zero(acc);
             for (int ch = 0; ch < sw / 32; ++ch)
                 bg_chunk<2, 8>(acc, A, sz + st * BG_MV_COLS * ld, ld, ch, g,
                                t);
@@ -397,7 +769,7 @@ bg_matvec_kernel(const __nv_bfloat16* __restrict__ X,
         // Z rows a slice at a time (X is read again each stage)
         for (int tile = 0; tile < tiles; ++tile) {
             const int z0 = tile * BG_MV_COLS;
-            clear();
+            bg_zero(acc);
             for (int s0 = 0; s0 < dp; s0 += BG_SLICE) {
                 const int w = bg_sw(dp - s0);
                 __syncthreads();            // the last slice is read
@@ -428,13 +800,228 @@ bg_matvec_kernel(const __nv_bfloat16* __restrict__ X,
             s += __shfl_xor_sync(0xffffffffu, s, 1);
             s += __shfl_xor_sync(0xffffffffu, s, 2);
             const int r = r0 + 32 * warp + 16 * mt + 8 * h + g;
-            if (t == 0 && r < n) out[r] = SIGN ? y[r] * s : s;
+            if (t == 0 && r < n) out[r] = s;
         }
+}
+
+// ------------------------------------------------------------- cd_update --
+
+// Staged width of a slice of cd_update's slice form (at most BG_CD_SLICE).
+__host__ __device__ __forceinline__ int bg_cd_sw(int left) {
+    const int w = (left + 31) / 32 * 32;
+    return w < BG_CD_SLICE ? w : BG_CD_SLICE;
+}
+
+// Shared memory of the pipelined cd_update form: `res` resident chunks of
+// block rows (staged rows, norms, weights) and each warp's ring of
+// BG_CD_WS tiles of BG_CD_WR X rows (staged rows, norms, signs).
+__host__ __device__ __forceinline__ int bg_cd_smem(int sw, int res) {
+    return (res * BG_CD_CW + BG_CD_WARPS * BG_CD_WS * BG_CD_WR)
+           * (bg_pld(sw) + 8);
+}
+// the slice form: a slice of a block's X tile and of one chunk, as above
+__host__ __device__ __forceinline__ int bg_cd_wide_smem() {
+    return (BG_CD_CW + BG_CD_WARPS * BG_CD_WR) * (bg_pld(BG_CD_SLICE) + 8);
+}
+
+// A warp's 16 rows against one 64-row chunk of block rows: the transform
+// of the products (acc) times the chunk's weights, into rs.  xr: the rows'
+// norms; bp: (zn, zn, w, w) of the chunk's column pairs.
+template <int KIND>
+__device__ __forceinline__ void bg_cd_fold(const float (&acc)[1][8][4],
+                                           float (&rs)[2],
+                                           const float (&xr)[2],
+                                           const float4* bp, float c,
+                                           float gamma, int degree,
+                                           float coef0, int t) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+        const float4 p = bp[4 * nt + t];   // columns 8 nt + 2 t, + 1
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                rs[h] = fmaf(bg_kval<KIND>(acc[0][nt][2 * h + e], xr[h],
+                                           e ? p.y : p.x, c, gamma, degree,
+                                           coef0),
+                             e ? p.w : p.z, rs[h]);
+    }
+}
+
+template <int KIND, bool WIDE>
+__global__ void __launch_bounds__(BG_CD_WARPS * 32, 2)
+bg_cd_kernel(const __nv_bfloat16* __restrict__ X,
+             const float* __restrict__ xn, const float* __restrict__ y,
+             const __nv_bfloat16* __restrict__ Xb,
+             const float* __restrict__ bn, const float* __restrict__ w,
+             float* __restrict__ out, int n, int B, int dp, int res,
+             float gamma, int degree, float coef0) {
+    extern __shared__ __align__(16) unsigned char bg_sm[];
+    constexpr int NT = BG_CD_WARPS * 32, TR = BG_CD_WR;
+    const int sw = WIDE ? BG_CD_SLICE : bg_sw(dp);
+    const int ld = bg_pld(sw);
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4, swz = bg_swz(ld, g);
+    const float c = gamma * 1.4426950408889634f;
+    const int nch = (B + BG_CD_CW - 1) / BG_CD_CW;
+    // the block rows (res chunks, one in the slice form), then (zn, zn, w,
+    // w) of their column pairs: their norms and weights
+    unsigned char* sb = bg_sm;
+    const int rows_b = (WIDE ? 1 : res) * BG_CD_CW;
+    float4* sbp = (float4*)(sb + rows_b * ld);
+    unsigned char* ring = (unsigned char*)(sbp + rows_b / 2);
+
+    // chunks [ch0, ch0 + cnt) of the block rows, slice [s0, s0 + w_), with
+    // their column terms (zero past B; visible after the caller's barrier)
+    auto load_b = [&](int ch0, int cnt, int s0, int w_) {
+        bg_load_rows_s(sb, Xb, B, dp, s0, w_, ld, ch0 * BG_CD_CW,
+                       cnt * BG_CD_CW, tid, NT);
+        if (s0 == 0)
+            for (int i = tid; i < cnt * BG_CD_CW / 2; i += NT) {
+                const int col = ch0 * BG_CD_CW + 2 * i;
+                float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                    if (col + e < B) {
+                        v[e] = KIND == KIND_RBF ? bn[col + e] : 0.0f;
+                        v[2 + e] = w[col + e];
+                    }
+                sbp[i] = make_float4(v[0], v[1], v[2], v[3]);
+            }
+    };
+    // a row's sum, written once: out = y * sum (with passes, the partial
+    // sums of the earlier passes wait in out, written and read by the same
+    // lane)
+    auto finish = [&](float (&rs)[2], int r, const float* ys, int lim,
+                      int pass, int npass) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            float s = rs[h];
+            s += __shfl_xor_sync(0xffffffffu, s, 1);
+            s += __shfl_xor_sync(0xffffffffu, s, 2);
+            const int rr = r + g + 8 * h;
+            if (t == 0 && rr < lim) {
+                if (pass > 0) s = out[rr] + s;
+                out[rr] = pass + 1 == npass ? ys[g + 8 * h] * s : s;
+            }
+        }
+    };
+
+    float acc[1][8][4];
+    if constexpr (!WIDE) {
+        // each warp streams its own share of the rows, tiles of TR rows
+        // through its own ring of BG_CD_WS cp.async stages (tile it +
+        // WS - 1 loading while tile it is multiplied and summed), with no
+        // block-wide barrier; the block rows stay resident (a pass of up
+        // to res chunks at a time, all warps taking the same count of
+        // tiles so that they meet at a pass's end)
+        constexpr int WS = BG_CD_WS;
+        const int warps = gridDim.x * BG_CD_WARPS;
+        const int share = (n + warps - 1) / warps;
+        const int wr0 = min(n, (blockIdx.x * BG_CD_WARPS + warp) * share);
+        const int wr1 = min(n, wr0 + share);
+        const int mine = (share + TR - 1) / TR;
+        const int stage_b = TR * ld;
+        unsigned char* wring = ring + warp * WS * (stage_b + 8 * TR);
+        float* wxn = (float*)(wring + WS * stage_b);   // WS x TR norms
+        float* wy = wxn + WS * TR;                      // WS x TR signs
+        const int npass = (nch + res - 1) / res;
+        const int total = npass * mine;
+        auto load_x = [&](int st, int k) {
+            const int r0 = wr0 + k * TR;
+            bg_load_rows_s(wring + st * stage_b, X, wr1, dp, 0, sw, ld, r0,
+                           TR, lane, 32);
+            if (KIND == KIND_RBF)
+                bg_load_vec(wxn + st * TR, xn, wr1, r0, TR, lane, 0);
+            bg_load_vec(wy + st * TR, y, wr1, r0, TR, lane, TR);
+        };
+        load_b(0, min(res, nch), 0, sw);
+        bg_commit();
+        bg_wait<0>();
+        __syncthreads();
+        for (int s = 0; s < WS - 1; ++s) {
+            if (s < total) load_x(s, s % mine);
+            bg_commit();
+        }
+        for (int it = 0; it < total; ++it) {
+            const int pass = it / mine, k = it % mine;
+            if (it > 0 && k == 0) {   // the next chunks of the block rows
+                __syncthreads();      // every warp is done with the last
+                load_b(pass * res, min(res, nch - pass * res), 0, sw);
+                bg_commit();
+                bg_wait<0>();
+                __syncthreads();
+            } else {
+                bg_wait<WS - 2>();
+            }
+            __syncwarp();   // tile it has landed; tile it - 1 is read
+            const int nx_it = it + WS - 1;
+            if (nx_it < total) load_x(nx_it % WS, nx_it % mine);
+            bg_commit();
+
+            const int st = it % WS;
+            float xr[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                xr[h] = KIND == KIND_RBF ? wxn[st * TR + g + 8 * h] : 0.0f;
+            const int cnt = min(res, nch - pass * res);
+            for (int cl = 0; cl < cnt; ++cl) {
+                bg_zero(acc);
+                for (int ch = 0; ch < sw / 32; ++ch)
+                    bg_chunk_s<1, 8>(acc, wring + st * stage_b,
+                                     sb + cl * BG_CD_CW * ld, ld, ch, swz, g,
+                                     t);
+                bg_cd_fold<KIND>(acc, rs, xr, sbp + cl * BG_CD_CW / 2, c,
+                                 gamma, degree, coef0, t);
+            }
+            finish(rs, wr0 + k * TR, wy + st * TR, wr1, pass, npass);
+        }
+        bg_wait<0>();
+    } else {
+        // wider rows: the block takes tiles of WARPS x TR rows; for each
+        // tile and chunk, the X tile and the chunk are staged a slice at a
+        // time
+        constexpr int TM = BG_CD_WARPS * TR;
+        float* rxn = (float*)(ring + TM * ld);
+        float* ry = rxn + TM;
+        const int ntiles = (n + TM - 1) / TM;
+        for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+            const int r0 = tile * TM;
+            float xr[2], rs[2] = {0.0f, 0.0f};
+            for (int ch = 0; ch < nch; ++ch) {
+                bg_zero(acc);
+                for (int s0 = 0; s0 < dp; s0 += BG_CD_SLICE) {
+                    const int w_ = bg_cd_sw(dp - s0);
+                    __syncthreads();   // the last slice is read
+                    load_b(ch, 1, s0, w_);
+                    bg_load_rows_s(ring, X, n, dp, s0, w_, ld, r0, TM, tid,
+                                   NT);
+                    if (s0 == 0) {
+                        if (KIND == KIND_RBF)
+                            bg_load_vec(rxn, xn, n, r0, TM, tid, 0);
+                        bg_load_vec(ry, y, n, r0, TM, tid, TM);
+                    }
+                    bg_commit();
+                    bg_wait<0>();
+                    __syncthreads();
+                    for (int q = 0; q < w_ / 32; ++q)
+                        bg_chunk_s<1, 8>(acc, ring + TR * warp * ld, sb, ld,
+                                         q, swz, g, t);
+                }
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    xr[h] = KIND == KIND_RBF ? rxn[TR * warp + g + 8 * h]
+                                             : 0.0f;
+                bg_cd_fold<KIND>(acc, rs, xr, sbp, c, gamma, degree, coef0,
+                                 t);
+            }
+            finish(rs, r0 + TR * warp, ry + TR * warp, n, 0, 1);
+        }
+    }
 }
 
 // ----------------------------------------------------------- entry points --
 
-static int bg_kermat_smem(int dp) { return 2 * BG_KM_T * bg_ld(bg_sw(dp)); }
 static int bg_mv_smem(int dp) {
     return (BG_MV_ROWS + 2 * BG_MV_COLS) * bg_ld(bg_sw(dp))
            + 4 * BG_MV_COLS * 4;
@@ -442,24 +1029,69 @@ static int bg_mv_smem(int dp) {
 
 static bool bg_dp_ok(int dp) { return dp >= 8 && dp % 8 == 0; }
 
-// Allow a kernel the shared memory of the widest slice it stages, once
-// (the caller keeps the flag: one per kernel instantiation).
+static int bg_sms = 0;
+
+// Once a kernel instantiation (the caller keeps the flag): allow it the
+// shared memory of the widest slice it stages.
 template <typename K>
 static int bg_smem_attr(K kernel, int smem_max, bool& done) {
     if (done) return 0;
-    const int err = (int)cudaFuncSetAttribute(
+    int err = 0;
+    if (bg_sms == 0) {
+        int dev;
+        err = (int)cudaGetDevice(&dev);
+        if (!err)
+            err = (int)cudaDeviceGetAttribute(
+                &bg_sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err) return err;
+    }
+    err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
     done = err == 0;
     return err;
+}
+
+// Blocks an SM holds of `kernel` at `smem` bytes (256 or 128 threads), asked
+// once a (kernel, size): a persistent grid is this many blocks an SM.
+static const void* bg_occ_fn[32];
+static int bg_occ_smem[32], bg_occ_val[32], bg_occ_len = 0;
+template <typename K>
+static int bg_occupancy(K kernel, int threads, int smem, int* occ) {
+    const void* fn = (const void*)kernel;
+    for (int i = 0; i < bg_occ_len; ++i)
+        if (bg_occ_fn[i] == fn && bg_occ_smem[i] == smem) {
+            *occ = bg_occ_val[i];
+            return 0;
+        }
+    const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occ, kernel, threads, smem);
+    if (err) return err;
+    if (*occ < 1) *occ = 1;
+    if (bg_occ_len < 32) {
+        bg_occ_fn[bg_occ_len] = fn;
+        bg_occ_smem[bg_occ_len] = smem;
+        bg_occ_val[bg_occ_len++] = *occ;
+    }
+    return 0;
 }
 
 extern "C" int rt_bf16_pack(const float* X, long long rows, int d, int dp,
                             void* out, float* norms, cudaStream_t stream) {
     if (d < 1 || !bg_dp_ok(dp) || dp < d) return BG_REFUSED;
     if (rows == 0) return 0;
-    const int thr = 128;
-    bg_pack_kernel<<<(unsigned)((rows + thr - 1) / thr), thr, 0, stream>>>(
-        X, rows, d, dp, (__nv_bfloat16*)out, norms);
+    // rows a block: 256, or as many as 48 KB of staged rows hold; one,
+    // read back from the output, where a staged row would not fit
+    const long long row_b = ((long long)(dp / 8) | 1) * 16;
+    const int staged = row_b <= 48 * 1024;
+    const int R = staged ? (int)(48 * 1024 / row_b < 256 ? 48 * 1024 / row_b
+                                                          : 256)
+                         : 1;
+    const int smem = staged ? (int)(R * row_b) : 0;
+    const long long blocks = (rows + R - 1) / R;
+    if (blocks >= (1LL << 31)) return BG_REFUSED;
+    const int vec = ((uintptr_t)X & 15) == 0;
+    bg_pack_kernel<<<(unsigned)blocks, 256, smem, stream>>>(
+        X, rows, d, dp, R, staged, vec, (__nv_bfloat16*)out, norms);
     return (int)cudaGetLastError();
 }
 
@@ -470,20 +1102,27 @@ static int bg_kermat_launch(const void* X, const float* xn, const void* Y,
                             float gamma, int degree, float coef0,
                             cudaStream_t stream) {
     static bool attr[2] = {false, false};
-    const bool wide = dp > BG_SLICE;
-    auto kernel = wide ? bg_kermat_kernel<KIND, true>
-                       : bg_kermat_kernel<KIND, false>;
-    const int smem = bg_kermat_smem(dp);
-    int err = bg_smem_attr(kernel, bg_kermat_smem(BG_SLICE), attr[wide]);
-    if (err) return err;
     const long long tr = (n + BG_KM_T - 1) / BG_KM_T;
     const long long tc = (m + BG_KM_T - 1) / BG_KM_T;
-    const long long tiles = sym ? tr * (tr + 1) / 2 : tr * tc;
-    if (tiles >= (1LL << 31) || batch > 65535) return BG_REFUSED;
-    dim3 grid((unsigned)tiles, (unsigned)batch);
+    // one X slot where the launch has one row of tiles (the row form)
+    const int xslots = batch == 1 && tr == 1 ? 1 : BG_KM_STAGES;
+    const bool wide = dp > BG_SLICE
+        || bg_km_smem(bg_sw(dp), xslots, BG_KM_STAGES, sym) > BG_SMEM_MAX;
+    auto kernel = wide ? bg_kermat_kernel<KIND, true>
+                       : bg_kermat_kernel<KIND, false>;
+    const int smem = wide ? bg_km_smem(BG_SLICE, 1, 1, sym)
+                          : bg_km_smem(bg_sw(dp), xslots, BG_KM_STAGES, sym);
+    int err = bg_smem_attr(kernel, BG_SMEM_MAX, attr[wide]);
+    if (err) return err;
+    int occ;
+    if ((err = bg_occupancy(kernel, 128, smem, &occ))) return err;
+    const long long tiles = (sym ? tr * (tr + 1) / 2 : tr * tc) * batch;
+    const long long slots = (long long)occ * bg_sms;
+    const int grid = (int)(tiles < slots ? tiles : slots);
+    const int vec = ((uintptr_t)out & 15) == 0;
     kernel<<<grid, 128, smem, stream>>>(
-        (const __nv_bfloat16*)X, xn, (const __nv_bfloat16*)Y, yn, out, n, m,
-        dp, sym, skip, gamma, degree, coef0);
+        (const __nv_bfloat16*)X, xn, (const __nv_bfloat16*)Y, yn, out, batch,
+        n, m, dp, sym, vec, xslots, skip, gamma, degree, coef0);
     return (int)cudaGetLastError();
 }
 
@@ -511,49 +1150,24 @@ extern "C" int rt_kermat_bf16(const void* X, const float* xn, const void* Y,
     return BG_REFUSED;
 }
 
-template <int KIND, bool SIGN>
+template <int KIND>
 static int bg_mv_launch(const void* X, const float* xn, const void* Z,
-                        const float* zn, const float* v, const float* y,
-                        float* out, int batch, int n, int m, int dp,
-                        float gamma, int degree, float coef0,
-                        cudaStream_t stream) {
+                        const float* zn, const float* v, float* out,
+                        int batch, int n, int m, int dp, float gamma,
+                        int degree, float coef0, cudaStream_t stream) {
     static bool attr[2] = {false, false};
     const bool wide = dp > BG_SLICE;
-    auto kernel = wide ? bg_matvec_kernel<KIND, SIGN, true>
-                       : bg_matvec_kernel<KIND, SIGN, false>;
+    auto kernel = wide ? bg_matvec_kernel<KIND, true>
+                       : bg_matvec_kernel<KIND, false>;
     const int smem = bg_mv_smem(dp);
     int err = bg_smem_attr(kernel, bg_mv_smem(BG_SLICE), attr[wide]);
     if (err) return err;
     if (batch > 65535) return BG_REFUSED;
     dim3 grid((unsigned)((n + BG_MV_ROWS - 1) / BG_MV_ROWS), (unsigned)batch);
     kernel<<<grid, 256, smem, stream>>>(
-        (const __nv_bfloat16*)X, xn, (const __nv_bfloat16*)Z, zn, v, y, out,
-        n, m, dp, gamma, degree, coef0);
+        (const __nv_bfloat16*)X, xn, (const __nv_bfloat16*)Z, zn, v, out, n,
+        m, dp, gamma, degree, coef0);
     return (int)cudaGetLastError();
-}
-
-template <bool SIGN>
-static int bg_mv(const void* X, const float* xn, const void* Z,
-                 const float* zn, const float* v, const float* y, float* out,
-                 int batch, int n, int m, int dp, int kind, float gamma,
-                 int degree, float coef0, cudaStream_t stream) {
-    if (!bg_dp_ok(dp)) return BG_REFUSED;
-    if (batch == 0 || n == 0) return 0;
-    switch (kind) {
-        case KIND_LINEAR:
-            return bg_mv_launch<KIND_LINEAR, SIGN>(X, xn, Z, zn, v, y, out,
-                                                   batch, n, m, dp, gamma,
-                                                   degree, coef0, stream);
-        case KIND_POLY:
-            return bg_mv_launch<KIND_POLY, SIGN>(X, xn, Z, zn, v, y, out,
-                                                 batch, n, m, dp, gamma,
-                                                 degree, coef0, stream);
-        case KIND_RBF:
-            return bg_mv_launch<KIND_RBF, SIGN>(X, xn, Z, zn, v, y, out,
-                                                batch, n, m, dp, gamma,
-                                                degree, coef0, stream);
-    }
-    return BG_REFUSED;
 }
 
 extern "C" int rt_kernel_matvec_bf16(const void* X, const float* xn,
@@ -562,8 +1176,52 @@ extern "C" int rt_kernel_matvec_bf16(const void* X, const float* xn,
                                      int n, int m, int dp, int kind,
                                      float gamma, int degree, float coef0,
                                      cudaStream_t stream) {
-    return bg_mv<false>(X, xn, Z, zn, v, nullptr, out, batch, n, m, dp, kind,
-                        gamma, degree, coef0, stream);
+    if (!bg_dp_ok(dp)) return BG_REFUSED;
+    if (batch == 0 || n == 0) return 0;
+    switch (kind) {
+        case KIND_LINEAR:
+            return bg_mv_launch<KIND_LINEAR>(X, xn, Z, zn, v, out, batch, n,
+                                             m, dp, gamma, degree, coef0,
+                                             stream);
+        case KIND_POLY:
+            return bg_mv_launch<KIND_POLY>(X, xn, Z, zn, v, out, batch, n, m,
+                                           dp, gamma, degree, coef0, stream);
+        case KIND_RBF:
+            return bg_mv_launch<KIND_RBF>(X, xn, Z, zn, v, out, batch, n, m,
+                                          dp, gamma, degree, coef0, stream);
+    }
+    return BG_REFUSED;
+}
+
+template <int KIND>
+static int bg_cd_launch(const void* X, const float* xn, const float* y,
+                        const void* Xb, const float* bn, const float* w,
+                        float* out, int n, int B, int dp, float gamma,
+                        int degree, float coef0, cudaStream_t stream) {
+    static bool attr[2] = {false, false};
+    const bool wide = dp > BG_PIPE_DP;
+    auto kernel = wide ? bg_cd_kernel<KIND, true> : bg_cd_kernel<KIND, false>;
+    int err = bg_smem_attr(kernel, BG_SMEM_MAX, attr[wide]);
+    if (err) return err;
+    // as many resident chunks as fit beside the warps' rings
+    const int nch = (B + BG_CD_CW - 1) / BG_CD_CW;
+    int res = 1, smem = bg_cd_wide_smem();
+    if (!wide) {
+        const int sw = bg_sw(dp);
+        while (res < nch && bg_cd_smem(sw, res + 1) <= BG_SMEM_MAX) ++res;
+        smem = bg_cd_smem(sw, res);
+        if (smem > BG_SMEM_MAX) return BG_REFUSED;
+    }
+    int occ;
+    const int threads = BG_CD_WARPS * 32;
+    if ((err = bg_occupancy(kernel, threads, smem, &occ))) return err;
+    const int rows_a_block = BG_CD_WARPS * BG_CD_WR;
+    const int tiles = (n + rows_a_block - 1) / rows_a_block;
+    const int grid = tiles < occ * bg_sms ? tiles : occ * bg_sms;
+    kernel<<<grid, threads, smem, stream>>>(
+        (const __nv_bfloat16*)X, xn, y, (const __nv_bfloat16*)Xb, bn, w, out,
+        n, B, dp, res, gamma, degree, coef0);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int rt_cd_update_bf16(const void* X, const float* xn,
@@ -572,6 +1230,20 @@ extern "C" int rt_cd_update_bf16(const void* X, const float* xn,
                                  int n, int B, int dp, int kind, float gamma,
                                  int degree, float coef0,
                                  cudaStream_t stream) {
-    return bg_mv<true>(X, xn, Xb, bn, w, y, out, 1, n, B, dp, kind, gamma,
-                       degree, coef0, stream);
+    if (!bg_dp_ok(dp) || B < 0) return BG_REFUSED;
+    if (n == 0) return 0;
+    if (B == 0)   // no columns: no update
+        return (int)cudaMemsetAsync(out, 0, (size_t)n * sizeof(float), stream);
+    switch (kind) {
+        case KIND_LINEAR:
+            return bg_cd_launch<KIND_LINEAR>(X, xn, y, Xb, bn, w, out, n, B,
+                                             dp, gamma, degree, coef0, stream);
+        case KIND_POLY:
+            return bg_cd_launch<KIND_POLY>(X, xn, y, Xb, bn, w, out, n, B, dp,
+                                           gamma, degree, coef0, stream);
+        case KIND_RBF:
+            return bg_cd_launch<KIND_RBF>(X, xn, y, Xb, bn, w, out, n, B, dp,
+                                          gamma, degree, coef0, stream);
+    }
+    return BG_REFUSED;
 }

@@ -800,6 +800,175 @@ def test_cuda_bf16_forms_batched_and_refusals(cuda_device):
         ops.kernel_matrix(X[0], Y[0], kern, compute_dtype="float16")
 
 
+# The persistent forms of kermat_bf16 and cd_column_update_bf16 at their
+# edges: n % 64 in {1, 63}, n below one tile, and more tiles than the
+# persistent grid has blocks (at most a few per SM of the 132).
+
+def _mv_close(got, want, mag, tol=2e-5):
+    """The bf16 matvec forms' measure: |got - want| within tol of 1 +
+    sum_j |K_ij w_j| (``mag``), where want is far from zero."""
+    err = ((got.double() - want.double()).abs()
+           / (1 + mag.double().abs())).max()
+    assert float(err) <= tol, float(err)
+    assert float(want.abs().max()) > 100 * tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 40, 64 * 3 + 1, 64 * 5 + 63, 64 * 700 + 1])
+def test_cuda_bf16_kermat_row_form_ragged(cuda_device, m):
+    """The row form (64 block rows against m rows, packed) and a ragged
+    (65, m) block, against the plain version."""
+    rng = np.random.default_rng(m)
+    kern = Kernel("rbf", gamma=0.3)
+    Y = _rows(rng, (m, 54), cuda_device)
+    X = _rows(rng, (65, 54), cuda_device)
+    P = ops.pack_bf16(Y)
+    A = ops.pack_bf16(X[:64].contiguous())
+    for got, Xr in ((ops.kernel_matrix(A, P, kern, compute_dtype=BF), X[:64]),
+                    (ops.kernel_matrix(X, Y, kern, compute_dtype=BF), X)):
+        want = ref.kermat_bf16_ref(Xr.cpu(), Y.cpu(), **_rkw(kern))
+        _bf_close(got.cpu(), want, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", KINDS, ids=[k["kind"] for k in KINDS])
+@pytest.mark.parametrize("shape", [(1, 1921), (3, 127), (2, 65)],
+                         ids=["n1921", "batch3-n127", "batch2-n65"])
+def test_cuda_bf16_kermat_symmetric_persistent(cuda_device, kw, shape):
+    """K(X, X) bit-symmetric and equal to the plain version where a
+    block's run of tiles crosses rows of tiles and batch items (1921 rows:
+    496 tiles on and above the diagonal)."""
+    b, n = shape
+    rng = np.random.default_rng(n)
+    kern = Kernel(**dict(kw, gamma=kw.get("gamma", 1.0) * 0.1))
+    X = _rows(rng, (b, n, 17), cuda_device)
+    K = ops.kernel_matrix(X, X, kern, compute_dtype=BF)
+    assert torch.equal(K, K.transpose(1, 2))
+    _bf_close(K.cpu(), ref.kermat_bf16_ref(X.cpu(), X.cpu(), **_rkw(kern)),
+              2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 257, 1000])
+def test_cuda_bf16_cd_column_update_ragged(cuda_device, B):
+    """cd_column_update_bf16 at every chunk edge of B (1000 at d = 54
+    takes two passes of resident chunks) and n at tile edges and past
+    the persistent grid, held to 2e-5 of 1 + sum_j |K_ij w_j|."""
+    rng = np.random.default_rng(B)
+    kern = Kernel("rbf", gamma=0.2)
+    Xb = _rows(rng, (B, 54), cuda_device)
+    w = torch.tensor(rng.standard_normal(B), dtype=torch.float32,
+                     device=cuda_device)
+    for n in (1, 127, 129, 64 * 782 + 1):
+        X = _rows(rng, (n, 54), cuda_device)
+        y = torch.sign(torch.tensor(rng.standard_normal(n),
+                                    dtype=torch.float32, device=cuda_device))
+        got = ops.cd_column_update(ops.pack_bf16(X), y, ops.pack_bf16(Xb), w,
+                                   kern, compute_dtype=BF)
+        Xc, yc, Bc, wc = X.cpu(), y.cpu(), Xb.cpu(), w.cpu()
+        want = ref.cd_column_update_bf16_ref(Xc, yc, Bc, wc, **_rkw(kern))
+        mag = ref.cd_column_update_bf16_ref(Xc, yc.abs(), Bc, wc.abs(),
+                                            **_rkw(kern))
+        if n > 1:
+            _mv_close(got.cpu(), want, mag)
+        else:
+            _bf_close(got.cpu(), want, 2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_cd_column_update_dedup_route(cuda_device):
+    """The dedup route of SVR's level 0: base rows at d = 10 (16 packed
+    columns), y = 1, B = 64."""
+    rng = np.random.default_rng(10)
+    kern = Kernel("rbf", gamma=1.0)
+    X = _rows(rng, (65536, 10), cuda_device)
+    ones = torch.ones(65536, device=cuda_device)
+    w = torch.tensor(rng.standard_normal(64), dtype=torch.float32,
+                     device=cuda_device)
+    P = ops.pack_bf16(X)
+    got = ops.cd_column_update(P, ones, P.index(torch.arange(
+        64, device=cuda_device)), w, kern, compute_dtype=BF)
+    Xc = X.cpu()
+    want = ref.cd_column_update_bf16_ref(Xc, ones.cpu(), Xc[:64], w.cpu(),
+                                         **_rkw(kern))
+    mag = ref.cd_column_update_bf16_ref(Xc, ones.cpu(), Xc[:64],
+                                        w.cpu().abs(), **_rkw(kern))
+    _mv_close(got.cpu(), want, mag)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_row_form_served_in_graph(cuda_device):
+    """The predicated row form inside a CUDA graph, as the cached level 0
+    replays it: not served, the replay matches the plain version; served,
+    a NaN-filled output is left untouched; then not served again."""
+    rng = np.random.default_rng(12)
+    kern = Kernel("rbf", gamma=0.3)
+    Y = _rows(rng, (64 * 300 + 63, 54), cuda_device)
+    P = ops.pack_bf16(Y)
+    A = P.index(torch.arange(64, device=cuda_device))
+    flag = torch.tensor(False, device=cuda_device)
+
+    def row_form():
+        return ops.kernel_matrix(A, P, kern, compute_dtype=BF, skip=flag)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        row_form()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = row_form()
+    want = ref.kermat_bf16_ref(Y[:64].cpu(), Y.cpu(), **_rkw(kern))
+    for served in (False, True, False):
+        out.fill_(float("nan"))
+        flag.fill_(served)
+        graph.replay()
+        torch.cuda.synchronize()
+        if served:
+            assert bool(torch.isnan(out).all())
+        else:
+            _bf_close(out.cpu(), want, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [54, 30001], ids=["staged", "read-back"])
+def test_cuda_bf16_pack_matches_plain(cuda_device, d):
+    """bf16_pack: the same bits as the plain rounding, and norms summed in
+    column order (rows past 48 KB of staging read back from the output)."""
+    rng = np.random.default_rng(d)
+    X = _rows(rng, (300 if d < 1000 else 5, d), cuda_device)
+    P = ops.pack_bf16(X)
+    q = X.cpu().to(torch.bfloat16)
+    assert torch.equal(P.data.cpu()[:, :d], q)
+    assert not bool(P.data.cpu()[:, d:].float().any())
+    qf = q.float()
+    want = torch.zeros(X.shape[0])
+    for k in range(d):          # one fma chain in column order
+        want = torch.addcmul(want, qf[:, k], qf[:, k])
+    err = ((P.norms.cpu().double() - want.double()).abs()
+           / (1 + want.double())).max()
+    assert float(err) <= 1e-6, float(err)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_redesigned_kernels_sass(cuda_device):
+    """The persistent kermat_bf16 and cd_column_update_bf16 kernels (every
+    kind, one-slice and wide) hold tensor-core products (HMMA) and
+    asynchronous copies (LDGSTS), and no local memory (LDL/STL: spills);
+    bf16_pack holds no local memory either."""
+    counts = build.sass_counts("bf16_gram", ("HMMA", "LDGSTS", "LDL", "STL"))
+    for key in ("bg_kermat_kernel", "bg_cd_kernel"):
+        fns = {fn: c for fn, c in counts.items() if key in fn}
+        assert len(fns) == 6, (key, counts)
+        for fn, c in fns.items():
+            assert c["HMMA"] > 0 and c["LDGSTS"] > 0, (fn, c)
+            assert c["LDL"] == 0 and c["STL"] == 0, (fn, c)
+    pack = {fn: c for fn, c in counts.items() if "bg_pack_kernel" in fn}
+    assert len(pack) == 1
+    assert all(c["LDL"] == 0 and c["STL"] == 0 for c in pack.values()), pack
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cd", [None, BF], ids=["f32", "bf16"])
 def test_cuda_kermat_skip_predicate(cuda_device, cd):
