@@ -87,9 +87,9 @@ csrc/ with nvcc (into build/repro_torch_kernels/) and runs nine phases
    objective of the bf16 alpha, the cache counters (hits + misses =
    iterations x 64), seconds a level, launches a kernel, and kernel_matvec's
    bf16 form at decision_exact's shape; (b) the spill tier:
-   fit(host_spill=True) on 65,536 covtype_like rows (a cut of the split,
-   whose f32 level-0 Gram of 864 GB no host holds) with gram_budget 4 GiB
-   (a quarter of the 16 GiB Gram a device slot, the host tier pinned):
+   fit(host_spill=True) on 32,768 covtype_like rows (a cut of the split,
+   whose f32 level-0 Gram of 864 GB no host holds) with gram_budget 1 GiB
+   (a quarter of the 4 GiB Gram a device slot, the host tier pinned):
    rounds, panels, counters, H2D GB/s, the share of the copies' time
    hidden behind the sub-solves, seconds and objective against the
    in-memory fit (1e-3 relative);
@@ -162,7 +162,15 @@ KERMAT_TOL = 2e-5                       # of 1 + |exact| (test_kernels_pallas.py
 # sum has 64 terms, 6.2e-6); the f32 form on the unrounded operands and a
 # form without its last Z stage must fail it (controls, bf16_case)
 MV_BF16_TOL = EARLY_TOL
-MV_STAGE = 64                           # Z rows a stage of the bf16 matvec form
+# Z rows a ring entry of the bf16 matvec form (the one-slice form's; the
+# wide form's are 32, so there the control drops two)
+MV_STAGE = 64
+# phase 2's slice forms of the bf16 kernels (rows wider than one staged
+# slice): WIDE_D uniform columns, kermat and kernel_matvec on WIDE_N rows,
+# cd_column_update on all N_TRAIN at B = 64; gamma puts K near 1/e at the
+# rows' mean squared distance (WIDE_D / 6)
+WIDE_D, WIDE_N = 300, 32_768
+WIDE_GAMMA = 6.0 / WIDE_D
 # phase 8: one-class SVM on the covtype_like training rows (OC_N of them)
 # and epsilon-SVR on friedman1 at its published d = 10, at
 # benchmarks/bench_svr.py's eps 0.1, C 4, gamma 1.  OC_N is cut from the
@@ -182,10 +190,12 @@ SVR_PRED_TOL = 1e-2                     # phase 3: kernel vs plain SVR predictio
 # level 0 ran to the cap, about 2 ms an iteration).  Phase 3's SVR fit keeps
 # 30,000 (at 10,000 its kernel and plain fits stopped 2e-4 apart in
 # objective) and is cut in scale instead, to FIT_N_SVR rows (a dual of
-# 8,192; at 8,192 rows its level 0 took 28,841-30,000 iterations, 155 s for
-# the pair)
+# 6,144, above FIT_FULL_GRAM, so level 0 stays Gram-free and runs the
+# kernels; at 8,192 rows its level 0 took 28,841-30,000 iterations, 155 s
+# for the pair; at 4,096, 17,621-18,578 and 104.5 s, with the whole smoke
+# at 1,181 s of its 1,200)
 SVR_ITERS = 10_000
-FIT_N_SVR = 4096
+FIT_N_SVR = 3072
 PRED_MARGIN = 1e-3                      # phase 3: labels compared off |f| < this
 SVM_KERNELS = ("kermat", "kernel_matvec", "cd_column_update", "kmeans_assign")
 SOURCES = {"kermat": ("src/repro_torch/kernels/csrc/kermat.cu",
@@ -214,8 +224,10 @@ BF16_SOURCES = {
 BF16_CACHE = 4096                       # phase 9(a): column-cache rows (bf16)
 # phase 9(b): the spill tier on SPILL_N covtype_like rows (a cut of the
 # 464,810-row split, whose f32 level-0 Gram of 864 GB no host holds): the
-# Gram is 16 GiB, the device budget a quarter of it
-SPILL_N, SPILL_N_TEST = 65_536, 16_384
+# Gram is 4 GiB, the device budget a quarter of it (65,536 rows and a 16
+# GiB Gram until the whole smoke ran 1,181-1,260 s of its 1,200 on some
+# hosts; the phase took about 240 s of it)
+SPILL_N, SPILL_N_TEST = 32_768, 16_384
 SPILL_BUDGET = SPILL_N * SPILL_N   # bytes: a quarter of the f32 Gram
 PHASE3_CACHE = 2048                     # phase 3's cached fit
 PHASE3_SPILL_BUDGET = 2048 * FIT_N * 4  # phase 3's spill fit: 4 panels
@@ -1997,10 +2009,11 @@ def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
     symmetric) and at the early-scoring bucket, its predicated row form at
     (64, n) once served (the launch returns at once) and once not,
     kernel_matvec at the bucket and n x n, cd_column_update at B = 64 and
-    the dedup route, and the pack of the training rows; each against its
-    plain version and float64 on the rounded operands.  Bounds count the
-    bytes of the function (d bf16 columns and an f32 norm a packed row),
-    not those of the padding to 8 columns."""
+    the dedup route, and the pack of the training rows; the slice forms of
+    kermat, kernel_matvec and cd_column_update at d = WIDE_D; each against
+    its plain version and float64 on the rounded operands.  Bounds count
+    the bytes of the function (d bf16 columns and an f32 norm a packed
+    row), not those of the padding to 8 columns."""
     from repro_torch.core import Kernel
     from repro_torch.core.predict import early_capacity
     from repro_torch.kernels import ops, ref
@@ -2055,6 +2068,16 @@ def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
     last = slice(n - NXN_ROWS, n)   # the n x n checks' rows: the last block
     last64 = slice(n - F64_ROWS, n)
     F32, DROP = "f32 form, unrounded operands", "last Z stage dropped"
+    # the slice forms' rows, packed once (the kernels alone are timed)
+    kern_w = Kernel("rbf", gamma=WIDE_GAMMA)
+    rkw_w = dict(kind="rbf", gamma=WIDE_GAMMA)
+    Xs = torch.rand(n, WIDE_D, device=DEV, generator=gen)
+    Xsn = Xs[:WIDE_N]
+    Ps, Psn = ops.pack_bf16(Xs), ops.pack_bf16(Xsn)
+    Ps_sel = Ps.index(sel)
+    Xs16 = Xs.to(torch.bfloat16)
+    vs = torch.randn(WIDE_N, device=DEV, generator=gen)
+    top = slice(0, F64_ROWS)
 
     cases = {
         "kermat_bf16": dict(
@@ -2176,6 +2199,53 @@ def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
             tol=MV_BF16_TOL, reps=50, graph_reps=20,
             shape=f"dedup route, epsilon-SVR base rows, y = 1, "
                   f"{tuple(Xf.shape)} x ({B}, {Xf.shape[1]})"),
+        "kernel_matvec_bf16_wide": dict(
+            run=lambda: ops.kernel_matvec(Psn, Psn, vs, kern_w,
+                                          compute_dtype=BF),
+            plain=lambda: ref.kernel_matvec_bf16_ref(Xsn, Xsn, vs, **rkw_w),
+            matmul=lambda: Xs16[:WIDE_N] @ Xs16[:WIDE_N].T,
+            pairs=WIDE_N * WIDE_N, depth=WIDE_D,
+            bytes=pbytes(WIDE_N, WIDE_D) + 8 * WIDE_N,
+            mag=lambda: ref.kernel_matvec_bf16_ref(Xsn, Xsn, vs.abs(),
+                                                   **rkw_w),
+            f64=lambda got, want: (got[top], want[top], *(
+                rbf_f64(q(Xsn[top]), q(Xsn), WIDE_GAMMA) @ w_.double()
+                for w_ in (vs, vs.abs()))),
+            # (the f32 form's error on unrounded uniform rows averages out
+            # over 32,768 terms: not a control here)
+            controls=lambda: {DROP: rbf_f64(q(Xsn[top]), q(Xsn), WIDE_GAMMA)
+                              @ drop_last_stage(vs).double()},
+            tol=MV_BF16_TOL, reps=5,
+            shape=f"slice form ({WIDE_N}, {WIDE_D}) x ({WIDE_N}, {WIDE_D}), "
+                  "packed"),
+        "kermat_bf16_wide": dict(
+            run=lambda: ops.kernel_matrix(Psn, Psn, kern_w, compute_dtype=BF),
+            plain=lambda: ref.kermat_bf16_ref(Xsn, Xsn, **rkw_w),
+            matmul=lambda: Xs16[:WIDE_N] @ Xs16[:WIDE_N].T,
+            pairs=WIDE_N * (WIDE_N + 1) // 2, depth=WIDE_D,
+            bytes=pbytes(WIDE_N, WIDE_D) + 4 * WIDE_N * WIDE_N,
+            f64=lambda got, want: (got[top], want[top], rbf_f64(
+                q(Xsn[top]), q(Xsn), WIDE_GAMMA)),
+            symmetric=True, tol=KERMAT_TOL, reps=5,
+            shape=f"slice form ({WIDE_N}, {WIDE_D})^2, K(X, X), packed"),
+        "cd_column_update_bf16_wide": dict(
+            run=lambda: ops.cd_column_update(Ps, ys, Ps_sel, w, kern_w,
+                                             compute_dtype=BF),
+            plain=lambda: ref.cd_column_update_bf16_ref(Xs, ys, Xs[:B], w,
+                                                        **rkw_w),
+            matmul=lambda: Xs16 @ Xs16[:B].T,
+            pairs=n * B, depth=WIDE_D,
+            bytes=pbytes(n + B, WIDE_D) + 4 * (2 * n + B),
+            mag=lambda: ref.cd_column_update_bf16_ref(Xs, ys.abs(), Xs[:B],
+                                                      w.abs(), **rkw_w),
+            f64=lambda got, want: (got, want, *(
+                ys.double() * (rbf_f64(q(Xs), q(Xs[:B]), WIDE_GAMMA)
+                               @ w.double()),
+                rbf_f64(q(Xs), q(Xs[:B]), WIDE_GAMMA) @ w.double().abs())),
+            controls=lambda: {F32: ops.cd_column_update(Xs, ys, Xs[:B], w,
+                                                        kern_w)},
+            tol=MV_BF16_TOL, reps=20, graph_reps=20,
+            shape=f"slice form ({n}, {WIDE_D}) x ({B}, {WIDE_D}), packed"),
         "bf16_pack": dict(
             run=lambda: ops.pack_bf16(Xtr).data,
             plain=lambda: torch.nn.functional.pad(Xq16, (0, dp - d)),
@@ -2336,7 +2406,7 @@ def phase_bf16_main(torch, Xtr, ytr, Xte, yte, cfg, main):
 def phase_spill(torch):
     """Phase 9(b): the spill tier.  fit(host_spill=True) on SPILL_N
     covtype_like rows with gram_budget SPILL_BUDGET: the f32 level-0 Gram is
-    SPILL_N^2 x 4 bytes (16 GiB), the device pool holds a quarter of it a
+    SPILL_N^2 x 4 bytes (4 GiB), the device pool holds a quarter of it a
     slot (as benchmarks/bench_outofcore.py sizes it) and the pinned host
     tier all of it.  Rounds, panels, counters, H2D GB/s, the share of the
     panel copies' time that overlapped a sub-solve, the fit's seconds and
@@ -2619,11 +2689,14 @@ def main() -> int:
     bf_fit = fit3["covtype_like, compute_dtype bfloat16"]
     bf_extra = {"kermat_bf16": {"bucket": "kermat_bf16_bucket",
                                 "rows": "kermat_bf16_rows",
-                                "rows_served": "kermat_bf16_rows_served"},
+                                "rows_served": "kermat_bf16_rows_served",
+                                "wide": "kermat_bf16_wide"},
                 "kernel_matvec_bf16": {"nxn": "kernel_matvec_bf16_nxn",
-                                       "exact": "kernel_matvec_bf16_exact"},
+                                       "exact": "kernel_matvec_bf16_exact",
+                                       "wide": "kernel_matvec_bf16_wide"},
                 "cd_column_update_bf16": {
-                    "dedup": "cd_column_update_bf16_dedup"}}
+                    "dedup": "cd_column_update_bf16_dedup",
+                    "wide": "cd_column_update_bf16_wide"}}
     for name, replaces in BF16_SOURCES.items():
         r = rows[name]
         on_9a = name != "cd_column_update_bf16"

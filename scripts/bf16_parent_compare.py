@@ -1,9 +1,17 @@
 """The bf16 forms of this tree against those of another (a parent commit
 unpacked with ``git archive`` into a git-ignored directory): builds both
 ``csrc/bf16_gram.cu`` with nvcc, runs each form on the same covtype_like
-rows (uniform rows at d = 10 for the dedup route), times each as
-CUDA-graph replays (``chip_smoke.graph_ms``), and reports whether every
-output is bit for bit the other's.  Needs one CUDA GPU; about a minute.
+rows (uniform rows at d = 10 for the dedup route and d = 300 for the
+matvec's wide form), times each as CUDA-graph replays
+(``chip_smoke.graph_ms``; the level-0 n x n matvec, about 0.1-0.2 s a
+call, eagerly), and reports whether every output is bit for bit the
+other's.  The matvec cases: n x n on the 464,810 packed rows, the
+early-scoring bucket (4, 58101) x (4, 116203), decision_exact's (116202)
+x (110349), a batched (5, 4096) x (5, 8192), the wide form at
+(32768, 300)^2 (a unit's X rows staged whole) and at (16384, 600)^2 (X
+streamed a slice an entry under the ring).  ``bf16_matvec_probe.py``
+times the same cases (``matvec_cases``).  Needs one CUDA GPU; about two
+minutes.
 
     python scripts/bf16_parent_compare.py [--parent build/parent]
 """
@@ -18,6 +26,63 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 LIB = ROOT / "build" / "parent_compare"
 ENTRIES = ("bf16_pack", "kermat_bf16", "kernel_matvec_bf16", "cd_update_bf16")
+
+
+def build_libs(pairs, *flags):
+    """nvcc each ``bf16_gram.cu`` of ``pairs`` ((source, library), ...)
+    into its library, all at once; returns each build's output."""
+    from repro_torch.kernels import build
+    procs = [subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, *flags,
+                               "-I", str(build.CSRC), "-o", str(lib),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, lib in pairs]
+    logs = [p.communicate()[0] for p in procs]
+    for (src, _), p, log in zip(pairs, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+    return logs
+
+
+def route(lib):
+    """Route the ops wrappers of the bf16 forms to the library ``lib``."""
+    from repro_torch.kernels import build
+    cdll = ctypes.CDLL(str(lib))
+    for key in ENTRIES:
+        symbol, argtypes = build.SIGNATURES[key]
+        fn = getattr(cdll, symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        build._loaded[key] = fn
+
+
+def matvec_cases(torch, X, gen):
+    """kernel_matvec_bf16's cases on the covtype_like rows X: {name: (A, B,
+    v, reps)}, f32 rows to pack (B None: B = A), and the replays of the
+    CUDA graph that times the case (0: timed eagerly)."""
+    dev = X.device
+    n, d = X.shape
+
+    def rows_of(count, width):
+        idx = torch.arange(count * width, device=dev) % n
+        return X[idx].reshape(count, width, d).contiguous()
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    return {
+        "n x n": (X, None, randn(n), 0),
+        "bucket": (rows_of(4, 58101).flip(0).contiguous(),
+                   rows_of(4, 116203), randn(4, 116203), 3),
+        "decision_exact": (rows_of(1, 116202)[0],
+                           rows_of(1, 110349)[0].flip(0).contiguous(),
+                           randn(110349), 5),
+        "batched": (rows_of(5, 4096), rows_of(5, 8192).flip(1).contiguous(),
+                    randn(5, 8192), 20),
+        "wide d 300": (torch.rand(32768, 300, device=dev, generator=gen),
+                       None, randn(32768), 5),
+        "wide d 600, X streamed": (
+            torch.rand(16384, 600, device=dev, generator=gen), None,
+            randn(16384), 5)}
 
 
 def main() -> int:
@@ -40,20 +105,9 @@ def main() -> int:
                / "csrc" / "bf16_gram.cu",
                "this tree": build.CSRC / "bf16_gram.cu"}
     LIB.mkdir(parents=True, exist_ok=True)
-    libs = {}
-    for i, (name, src) in enumerate(sources.items()):
-        libs[name] = LIB / f"bf16_gram_{i}.so"
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
-                        str(build.CSRC), "-o", str(libs[name]), str(src)],
-                       check=True)
-
-    def use(name):   # route the ops wrappers to one tree's library
-        lib = ctypes.CDLL(str(libs[name]))
-        for key in ENTRIES:
-            symbol, argtypes = build.SIGNATURES[key]
-            fn = getattr(lib, symbol)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            build._loaded[key] = fn
+    libs = {name: LIB / f"bf16_gram_{i}.so"
+            for i, name in enumerate(sources)}
+    build_libs([(sources[name], libs[name]) for name in sources])
 
     dev, BF = cs.DEV, "bfloat16"
     X = torch.from_numpy(covtype_like(np.random.default_rng(cs.SEED),
@@ -67,11 +121,12 @@ def main() -> int:
     ys = torch.where(torch.rand(n, device=dev, generator=gen) < 0.5, -1.0,
                      1.0)
     Xf = torch.rand(65536, 10, device=dev, generator=gen)
+    cases = matvec_cases(torch, X, gen)
     ones = torch.ones(65536, device=dev)
     w64 = torch.randn(64, device=dev, generator=gen)
     outs = {}
     for name in sources:
-        use(name)
+        route(libs[name])
         P = ops.pack_bf16(X)
         Pf = ops.pack_bf16(Xf)
         rows64 = torch.arange(64, device=dev)
@@ -95,6 +150,12 @@ def main() -> int:
         out["bucket (512 queries)"] = ops.kernel_matrix(
             Qs[:, :512].contiguous(), M.contiguous(), kern, compute_dtype=BF)
         Xcc, Mc = Xc.contiguous(), M.contiguous()
+        mv = {}
+        for key, (A, B, v, reps) in cases.items():
+            A = P if key == "n x n" else ops.pack_bf16(A)
+            mv[key] = (A, A if B is None else ops.pack_bf16(B), v, reps)
+            out[f"kernel_matvec {key}"] = ops.kernel_matvec(
+                *mv[key][:3], kern, compute_dtype=BF)
         times = {
             "row form": cs.graph_ms(torch, lambda: ops.kernel_matrix(
                 Psel, P, kern, compute_dtype=BF, skip=flag), 20),
@@ -107,11 +168,17 @@ def main() -> int:
             "dedup route": cs.graph_ms(torch, lambda: ops.cd_column_update(
                 Pf, ones, Pfs, w64, kern, compute_dtype=BF), 20),
             "bf16_pack": cs.graph_ms(torch, lambda: ops.pack_bf16(X), 20)}
+        for key, (A, B, v, reps) in mv.items():
+            run = lambda A=A, B=B, v=v: ops.kernel_matvec(   # noqa: E731
+                A, B, v, kern, compute_dtype=BF)
+            times[f"kernel_matvec {key}"] = (
+                cs.graph_ms(torch, run, reps) if reps
+                else cs.cuda_ms(torch, run, 3))
         print(f"{name}: ms (graph replays) "
               + ", ".join(f"{k} {v:.4f}" for k, v in times.items()),
               flush=True)
         outs[name] = {k: v.cpu() for k, v in out.items()}
-        del P, Pf, out, Xcc, Mc
+        del P, Pf, out, Xcc, Mc, mv
         torch.cuda.empty_cache()
     same = True
     for key, a in outs["parent"].items():

@@ -34,22 +34,24 @@
 // zero fill.  Rows of up to BG_SLICE columns are one slice; a wider row
 // takes further slices, summed into the same accumulators in column
 // order, so every d is taken (cd_update's slices are BG_CD_SLICE columns,
-// past BG_PIPE_DP).  The wide forms are instantiations of their
-// own (WIDE), so that the one-slice forms compile as straight-line code
-// (a slice loop there cost them registers, spills and occupancy).
+// past BG_PIPE_DP; the matvec's BG_MV_WSW, past BG_MV_DP).  The wide forms
+// are instantiations of their own (WIDE), so that the one-slice forms
+// compile as straight-line code (a slice loop there cost them registers,
+// spills and occupancy).
 //
 // Products: mma.sync.m16n8k16 (bf16 in, f32 accumulate) on tiles staged in
-// shared memory by cp.async.  A lane reads 16 bytes of a row at once: the
-// 32 columns of a chunk are dealt to the two k16 steps so that lane t's
-// fragment pairs (k = 2t, 2t+1 and 2t+8, 2t+9 of each step) are physical
-// columns 8t .. 8t + 3 of the chunk (step one) and 8t + 4 .. 8t + 7 (step
-// two).  A and B take the same map, so each product pairs equal columns.
-// The matvec form pads staged rows to bg_ld(slice width) bytes, 64 past a
-// multiple of 128; the persistent forms store them unpadded with the 16-byte
-// chunks of odd rows xor-swizzled (bg_swz), a third less shared memory for
-// the same conflict-free reads.  mma.sync suffices: every form is bound by
-// bytes or by its exps, not by the products (wgmma would need its own
-// shared-memory layout and could not lift a byte bound).
+// shared memory by cp.async (the matvec's Z rows by TMA).  A lane reads 16
+// bytes of a row at once: the 32 columns of a chunk are dealt to the two
+// k16 steps so that lane t's fragment pairs (k = 2t, 2t+1 and 2t+8, 2t+9
+// of each step) are physical columns 8t .. 8t + 3 of the chunk (step one)
+// and 8t + 4 .. 8t + 7 (step two).  A and B take the same map, so each
+// product pairs equal columns.  Staged rows are unpadded, with the 16-byte
+// chunks of odd rows xor-swizzled (bg_swz) where the row stride is a
+// multiple of 128 bytes, so the reads are conflict-free (the matvec's TMA
+// boxes cannot swizzle so: they land at a padded pitch, bg_ld).  mma.sync
+// suffices for the byte-bound forms (wgmma would need its own shared-memory
+// layout and could not lift a byte bound); the matvec keeps it for its
+// bits (wgmma's accumulation order is its own).
 //
 // Forms:
 //   kermat      (n, m) f32 out, 64 x 64 tiles (four warps of 16 rows),
@@ -76,11 +78,19 @@
 //               predicate (skip), read once a block, makes every block
 //               return at once: the cached solver's row form, which a CUDA
 //               graph replays whether or not the cache served the block.
-//   matvec      out = K(X, Z) v: a block keeps 256 X rows and streams Z in
-//               64-row stages (double-buffered), summing each row's terms
-//               in registers; the (n, m) block never reaches device
-//               memory.  Rows wider than one slice stage the X rows again
-//               with each Z stage, a slice at a time.
+//   matvec      out = K(X, Z) v, the (n, m) block never in device memory.
+//               Bound by its exps (one MUFU ex2 a pair); the transform
+//               around each is 11 more instructions (exp2f's subnormal
+//               fix-up included) and the products cost about as much time
+//               on the tensor pipe, and the two do not overlap.  A
+//               persistent kernel: two blocks of 8 warps an SM, 32 X rows
+//               a warp, walk (batch item, 256-row) units; Z streams through
+//               a ring of TMA-fed entries that mbarriers mark full, and the
+//               last warp to release an entry refills it, so no block-wide
+//               barrier is in the loop.  A row's terms are summed in
+//               registers in column order and by a quad's xor shuffles,
+//               written once.  Rows wider than BG_MV_DP take 96-column
+//               slices through the ring (see "matvec" below).
 //   cd_update   out = y * (K(X, Xb) w), bound by the bytes of X's packed
 //               rows (0.0167 ms at the level-0 shape), so the loads must run
 //               under the products and exps, which a block that stages its
@@ -100,12 +110,13 @@
 //               a block's 128-row tile and a chunk a slice at a time.
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 #define BG_REFUSED 20000      // ops._REFUSED: nothing launched
 #define BG_SLICE 256          // widest slice of a row in shared memory
-#define BG_MV_ROWS 256        // X rows a matvec block (8 warps x 32)
 #define BG_MV_COLS 64         // Z rows a matvec stage
 #define BG_KM_T 64            // kermat tile
 #define BG_KM_LDT 72          // row stride of the staged tile (floats)
@@ -119,6 +130,9 @@
 #define BG_CD_SLICE 128       // widest slice of cd_update's slice form
 #define BG_SMEM_MAX 232448    // shared memory a block may use (227 KB)
 
+// Row pitch (bytes) of a staged slice sw columns wide, 64 bytes past a
+// multiple of 128 so that the 16-byte fragment reads of a quarter warp
+// (rows g, g + 1) fall on distinct banks without a swizzle.
 __host__ __device__ __forceinline__ int bg_ld(int sw) {
     const int b = sw * 2;
     return b % 128 == 0 ? b + 64 : b;   // sw a multiple of 32: b % 64 == 0
@@ -131,19 +145,15 @@ __host__ __device__ __forceinline__ int bg_sw(int left) {
     return w < BG_SLICE ? w : BG_SLICE;
 }
 
-__device__ __forceinline__ uint32_t bg_smem(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 // cp.async of `bytes` (4 or 16); src_bytes 0 zero-fills
 __device__ __forceinline__ void bg_cp(void* dst, const void* src, int bytes,
                                       int src_bytes) {
     if (bytes == 16)
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                     :: "r"(bg_smem(dst)), "l"(src), "r"(src_bytes));
+                     :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
     else
         asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                     :: "r"(bg_smem(dst)), "l"(src), "r"(src_bytes));
+                     :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void bg_commit() {
     asm volatile("cp.async.commit_group;\n" ::);
@@ -182,25 +192,6 @@ __device__ __forceinline__ float bg_kval(float g, float xn, float zn, float c,
     return exp2f(-c * fmaxf(xn + zn - 2.0f * g, 0.0f));
 }
 
-// Columns [c0, c0 + w) of rows [r0, r0 + R) of a packed (rows, dp) bf16
-// matrix into shared memory (row stride ld bytes); rows past `rows` and
-// columns past dp are zero-filled.
-__device__ __forceinline__ void bg_load_rows(unsigned char* dst,
-                                             const __nv_bfloat16* src,
-                                             int rows, int dp, int c0, int w,
-                                             int ld, int r0, int R, int tid,
-                                             int nthr) {
-    const int per = w / 8;                  // 16-byte chunks a staged row
-    for (int i = tid; i < R * per; i += nthr) {
-        const int r = i / per, ch = i % per;
-        const int gr = r0 + r, gc = c0 + ch * 8;
-        const bool ok = gr < rows && gc < dp;   // dp a multiple of 8
-        const __nv_bfloat16* s =
-            src + (ok ? (long long)gr * dp + gc : 0LL);
-        bg_cp(dst + r * ld + ch * 16, s, 16, ok ? 16 : 0);
-    }
-}
-
 // Entries [r0, r0 + R) of an f32 vector into shared memory by 4-byte
 // copies, one a thread from thread `first` on; past `rows` zero.
 __device__ __forceinline__ void bg_load_vec(float* dst, const float* src,
@@ -210,32 +201,6 @@ __device__ __forceinline__ void bg_load_vec(float* dst, const float* src,
     if (i >= 0 && i < R) {
         const bool ok = r0 + i < rows;
         bg_cp(dst + i, src + (ok ? r0 + i : 0), 4, ok ? 4 : 0);
-    }
-}
-
-// One 32-column chunk of a warp's products: MT m16 tiles of A (rows a_row0
-// + 16 mt) against NT n8 tiles of B (rows b_row0 + 8 nt).
-template <int MT, int NT>
-__device__ __forceinline__ void bg_chunk(float (&acc)[MT][NT][4],
-                                         const unsigned char* A,
-                                         const unsigned char* B, int ld,
-                                         int ch, int g, int t) {
-    uint4 a[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-        a[mt][0] = bg_lds(A + (16 * mt + g) * ld + ch * 64 + t * 16);
-        a[mt][1] = bg_lds(A + (16 * mt + g + 8) * ld + ch * 64 + t * 16);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-        const uint4 b = bg_lds(B + (8 * nt + g) * ld + ch * 64 + t * 16);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-            bg_mma(acc[mt][nt], a[mt][0].x, a[mt][1].x, a[mt][0].y,
-                   a[mt][1].y, b.x, b.y);
-            bg_mma(acc[mt][nt], a[mt][0].z, a[mt][1].z, a[mt][0].w,
-                   a[mt][1].w, b.z, b.w);
-        }
     }
 }
 
@@ -671,137 +636,392 @@ bg_kermat_kernel(const __nv_bfloat16* __restrict__ X,
 }
 
 // ---------------------------------------------------------------- matvec --
+//
+// Bound by its exps, but the transform around each costs 11 more issue
+// slots, and the products (mma.sync, depth 64 at dp 56) about as much
+// time again on the tensor pipe; measured (PERF.md, runs X1-X16), the two
+// do not overlap on a scheduler, whether a block's warps meet at barriers,
+// drift apart in a ring, split the two roles, or run their products half
+// an entry ahead, so what is left to remove is everything else.  A
+// persistent grid of two blocks of 8 warps an SM walks units of 256 X
+// rows (one batch item's), 32 rows a warp.  Z streams through a ring of S
+// entries of ZR rows, each one TMA box (rows past m and columns past dp
+// zeros) landing at a pitch 64 bytes past a multiple of 128 (bg_ld:
+// conflict-free fragment reads), beside its (zn, zn, v, v) column pairs,
+// which the issuing warp's lanes copy with cp.async; the entry's "full"
+// mbarrier takes both.  Copied by cp.async lanes instead, the rows cost
+// the issuing warp some 30 ms at n x n.  There is no block-wide barrier in
+// the loop: a warp waits only for the entry it reads and releases it with
+// a shared-memory count; the last of the 8 warps to release an entry
+// issues the entry S further along the block's walk into its slot.  A
+// unit reads Z once for 256 rows (Z, 52 MB at n x n, does not stay in the
+// 50 MB L2).  A warp's products are 32 Z rows at a time (a 2 x 4 tile of
+// m16n8 fragments, 32 accumulators: 64 spilled at 128 registers), its X
+// rows staged in the A-fragment layout (bg_load_frag), so a fragment is
+// one 16-byte load in register order.  The one-slice form (dp up to
+// BG_MV_DP, one box a row) stages each warp's X rows for a unit and takes
+// 64-row entries, two halves each.  The wide form takes 96-column slices,
+// an entry a slice of 32 Z rows, summed into the same accumulators in
+// column order, then transformed; a unit's X rows are staged whole where
+// they fit beside the ring, else each warp streams its rows' slice for
+// each entry through its own ring of BG_MV_WS slots (cp.async groups).
+#define BG_MV_WARPS 8         // warps a block (two blocks an SM, one wide)
+#define BG_MV_WR 32           // X rows a warp
+#define BG_MV_SMAX 12         // most entries of the ring
+#define BG_MV_DP 224          // widest packed row of the one-slice form
+#define BG_MV_WSW 96          // columns a slice of the wide form
+#define BG_MV_WS 4            // entries of the wide form's X ring
+#define BG_MV_HDR 256         // barrier bytes ahead of the staged rows
+#define BG_SM_SMEM 233472     // shared memory of an SM (228 KB)
 
-template <int KIND, bool WIDE>
-__global__ void __launch_bounds__(256)
-bg_matvec_kernel(const __nv_bfloat16* __restrict__ X,
-                 const float* __restrict__ xn,
-                 const __nv_bfloat16* __restrict__ Z,
-                 const float* __restrict__ zn, const float* __restrict__ v,
-                 float* __restrict__ out, int n, int m, int dp, float gamma,
-                 int degree, float coef0) {
-    extern __shared__ __align__(16) unsigned char bg_sm[];
-    const int sw = bg_sw(dp);
-    const int ld = bg_ld(sw);
-    unsigned char* sx = bg_sm;                              // 256 X rows
-    unsigned char* sz = sx + BG_MV_ROWS * ld;               // 2 Z stages
-    float* szn = (float*)(sz + 2 * BG_MV_COLS * ld);        // 2 x 64 norms
-    float* sv = szn + 2 * BG_MV_COLS;                       // 2 x 64 weights
-    const int b = blockIdx.y;
-    X += (long long)b * n * dp;
-    xn += (long long)b * n;
-    Z += (long long)b * m * dp;
-    zn += (long long)b * m;
-    v += (long long)b * m;
-    out += (long long)b * n;
-    const int r0 = blockIdx.x * BG_MV_ROWS;
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int g = lane / 4, t = lane % 4;
-    const int tiles = (m + BG_MV_COLS - 1) / BG_MV_COLS;
+// An arrival on the barrier once this thread's earlier cp.async copies
+// have landed (counted in the barrier's expected arrivals).
+__device__ __forceinline__ void bg_cp_arrive(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
 
-    float xr[2][2], part[2][2];
+// One more release of a ring entry, ordered after this thread's reads of
+// it (and, for the last, before its refill): the count before it.
+__device__ __forceinline__ unsigned bg_release_count(unsigned* cnt) {
+    unsigned old;
+    asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+                 : "=r"(old) : "r"(smem_u32(cnt)) : "memory");
+    return old;
+}
+
+__device__ __forceinline__ void bg_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Staged width of the wide form's slice that starts `left` columns before
+// the row's end: a multiple of 32, at most BG_MV_WSW.
+__host__ __device__ __forceinline__ int bg_mv_w(int left) {
+    const int w = (left + 31) / 32 * 32;
+    return w < BG_MV_WSW ? w : BG_MV_WSW;
+}
+
+// Z rows an entry of the ring (the one-slice form's, or a slice's).
+__host__ __device__ __forceinline__ int bg_mv_zr(bool wide) {
+    return wide ? 32 : BG_MV_COLS;
+}
+// Staged row stride (bytes) and the bytes of one ring entry: its staged
+// Z rows and their (zn, zn, v, v) column pairs.
+__host__ __device__ __forceinline__ int bg_mv_ld(int dp, bool wide) {
+    return bg_ld(wide ? BG_MV_WSW : bg_sw(dp));
+}
+__host__ __device__ __forceinline__ int bg_mv_entry(int ld, bool wide) {
+    return bg_mv_zr(wide) * (ld + 8);
+}
+// X slots of a warp: one for the one-slice form; the wide form's slices
+// of a unit (staged whole) or its ring (xring).
+__host__ __device__ __forceinline__ int bg_mv_xslots(int dp, bool wide,
+                                                     int xring) {
+    return !wide ? 1 : xring ? BG_MV_WS : (dp + BG_MV_WSW - 1) / BG_MV_WSW;
+}
+// Shared memory of a block with S ring entries: the barriers, the X
+// slots, the ring.
+__host__ __device__ __forceinline__ int bg_mv_smem(int dp, bool wide,
+                                                   int xring, int S) {
+    const int ld = bg_mv_ld(dp, wide);
+    return BG_MV_HDR
+           + bg_mv_xslots(dp, wide, xring) * BG_MV_WARPS * BG_MV_WR * ld
+           + S * bg_mv_entry(ld, wide);
+}
+
+// Columns [c0, c0 + w) of a warp's 32 rows [r0, r0 + 32) of a packed
+// (rows, dp) matrix into the A-fragment layout that bg_chunk_f reads: for
+// chunk ch, m16 tile mt, k16 step st and lane (g, t), 16 bytes at
+// ((ch * 2 + mt) * 2 + st) * 512 + lane * 16 holding, as 4-byte column
+// pairs, rows 16 mt + g and 16 mt + g + 8 at chunk columns 8 t + 4 st,
+// then both at 8 t + 4 st + 2: the registers {a0, a1, a2, a3} of the
+// step, so a fragment is one 16-byte load, in order.  4-byte cp.async
+// copies by the warp's lanes; zero past `rows` and dp.
+__device__ __forceinline__ void bg_load_frag(unsigned char* dst,
+                                             const __nv_bfloat16* src,
+                                             int rows, int dp, int c0, int w,
+                                             int r0, int lane) {
+    const int pieces = w / 32 * 512;                // 4-byte pieces
+    for (int i = lane; i < pieces; i += 32) {
+        const int q = i & 3, l = (i >> 2) & 31, grp = i >> 7;
+        const int st = grp & 1, mt = (grp >> 1) & 1, ch = grp >> 2;
+        const int r = r0 + 16 * mt + (l >> 2) + 8 * (q & 1);
+        const int col = c0 + 32 * ch + 8 * (l & 3) + 4 * st + 2 * (q >> 1);
+        const bool ok = r < rows && col < dp;       // dp a multiple of 8
+        bg_cp(dst + 4 * i, src + (ok ? (long long)r * dp + col : 0LL), 4,
+              ok ? 4 : 0);
+    }
+}
+
+// bg_chunk_s<2, NT> with A in bg_load_frag's layout and B at a padded
+// pitch (bg_ld, no swizzle): the same products in the same order, each A
+// fragment one 16-byte load into its registers.
+template <int NT>
+__device__ __forceinline__ void bg_chunk_f(float (&acc)[2][NT][4],
+                                           const unsigned char* Af,
+                                           const unsigned char* B, int ld,
+                                           int ch, int g, int t, int lane) {
+    uint4 a[2][2];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int r = r0 + 32 * warp + 16 * mt + 8 * h + g;
-            xr[mt][h] = (KIND == KIND_RBF && r < n) ? xn[r] : 0.0f;
-            part[mt][h] = 0.0f;
-        }
-    const float c = gamma * 1.4426950408889634f;
-    const unsigned char* A = sx + 32 * warp * ld;
-    float acc[2][8][4];
-    // the transform of a stage's products, times its weights, into part
-    auto fold = [&](const float* zs, const float* vs) {
+        for (int st = 0; st < 2; ++st)
+            a[mt][st] = bg_lds(Af + ((ch * 2 + mt) * 2 + st) * 512
+                               + lane * 16);
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < NT; ++nt) {
+        const uint4 b = bg_lds(B + (8 * nt + g) * ld + ch * 64 + t * 16);
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int col = 8 * nt + 2 * t + e;
-                const float zc = zs[col], w = vs[col];
-#pragma unroll
-                for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-                    for (int h = 0; h < 2; ++h)
-                        part[mt][h] = fmaf(
-                            bg_kval<KIND>(acc[mt][nt][2 * h + e], xr[mt][h],
-                                          zc, c, gamma, degree, coef0),
-                            w, part[mt][h]);
-            }
-    };
-
-    if (!WIDE) {
-        // one slice: the block's X rows stay resident, Z streams in
-        // double-buffered stages
-        auto issue = [&](int tile) {
-            const int st = tile & 1;
-            const int z0 = tile * BG_MV_COLS;
-            bg_load_rows(sz + st * BG_MV_COLS * ld, Z, m, dp, 0, sw, ld, z0,
-                         BG_MV_COLS, tid, 256);
-            if (tid < BG_MV_COLS) {
-                const int col = z0 + tid;
-                const bool ok = col < m;
-                bg_cp(szn + st * BG_MV_COLS + tid, zn + (ok ? col : 0), 4,
-                      ok && KIND == KIND_RBF ? 4 : 0);
-                bg_cp(sv + st * BG_MV_COLS + tid, v + (ok ? col : 0), 4,
-                      ok ? 4 : 0);
-            }
-        };
-        bg_load_rows(sx, X, n, dp, 0, sw, ld, r0, BG_MV_ROWS, tid, 256);
-        if (tiles > 0) issue(0);
-        bg_commit();
-        for (int tile = 0; tile < tiles; ++tile) {
-            if (tile + 1 < tiles) issue(tile + 1);
-            bg_commit();
-            bg_wait<1>();
-            __syncthreads();
-            const int st = tile & 1;
-            bg_zero(acc);
-            for (int ch = 0; ch < sw / 32; ++ch)
-                bg_chunk<2, 8>(acc, A, sz + st * BG_MV_COLS * ld, ld, ch, g,
-                               t);
-            fold(szn + st * BG_MV_COLS, sv + st * BG_MV_COLS);
-            __syncthreads();
-        }
-        bg_wait<0>();
-    } else {
-        // wider rows: each stage stages the block's X rows and the stage's
-        // Z rows a slice at a time (X is read again each stage)
-        for (int tile = 0; tile < tiles; ++tile) {
-            const int z0 = tile * BG_MV_COLS;
-            bg_zero(acc);
-            for (int s0 = 0; s0 < dp; s0 += BG_SLICE) {
-                const int w = bg_sw(dp - s0);
-                __syncthreads();            // the last slice is read
-                bg_load_rows(sx, X, n, dp, s0, w, ld, r0, BG_MV_ROWS, tid,
-                             256);
-                bg_load_rows(sz, Z, m, dp, s0, w, ld, z0, BG_MV_COLS, tid,
-                             256);
-                if (s0 == 0 && tid < BG_MV_COLS) {
-                    const int col = z0 + tid;
-                    const bool ok = col < m;
-                    szn[tid] = ok && KIND == KIND_RBF ? zn[col] : 0.0f;
-                    sv[tid] = ok ? v[col] : 0.0f;
-                }
-                bg_commit();
-                bg_wait<0>();
-                __syncthreads();
-                for (int ch = 0; ch < w / 32; ++ch)
-                    bg_chunk<2, 8>(acc, A, sz, ld, ch, g, t);
-            }
-            fold(szn, sv);
+        for (int mt = 0; mt < 2; ++mt) {
+            bg_mma(acc[mt][nt], a[mt][0].x, a[mt][0].y, a[mt][0].z,
+                   a[mt][0].w, b.x, b.y);
+            bg_mma(acc[mt][nt], a[mt][1].x, a[mt][1].y, a[mt][1].z,
+                   a[mt][1].w, b.z, b.w);
         }
     }
+}
+
+// 32 of the products' columns (acc, a 2 x 4 tile of m16n8 fragments)
+// transformed, times their weights (bp: the (zn, zn, v, v) pairs), into
+// each row's sum, the columns in order.
+template <int KIND>
+__device__ __forceinline__ void bg_mv_fold(const float (&acc)[2][4][4],
+                                           float (&part)[2][2],
+                                           const float (&xr)[2][2],
+                                           const float4* bp, float c,
+                                           float gamma, int degree,
+                                           float coef0, int t) {
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int nt = 0; nt < 4; ++nt) {
+        const float4 p = bp[4 * nt + t];            // columns 8 nt + 2 t, + 1
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            float s = part[mt][h];
-            s += __shfl_xor_sync(0xffffffffu, s, 1);
-            s += __shfl_xor_sync(0xffffffffu, s, 2);
-            const int r = r0 + 32 * warp + 16 * mt + 8 * h + g;
-            if (t == 0 && r < n) out[r] = s;
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    part[mt][h] = fmaf(
+                        bg_kval<KIND>(acc[mt][nt][2 * h + e], xr[mt][h],
+                                      e ? p.y : p.x, c, gamma, degree, coef0),
+                        e ? p.w : p.z, part[mt][h]);
+    }
+}
+
+template <int KIND, bool WIDE>
+__global__ void __launch_bounds__(BG_MV_WARPS * 32, WIDE ? 1 : 2)
+bg_matvec_kernel(const __grid_constant__ CUtensorMap tz,
+                 const __nv_bfloat16* __restrict__ X,
+                 const float* __restrict__ xn, const float* __restrict__ zn,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 int batch, int n, int m, int dp, int stages, int xring,
+                 float gamma, int degree, float coef0) {
+    extern __shared__ __align__(128) unsigned char bg_mv_sm[];
+    constexpr int W = BG_MV_WARPS, R = W * BG_MV_WR;  // X rows a unit
+    constexpr int ZR = WIDE ? 32 : BG_MV_COLS;        // bg_mv_zr
+    const int S = stages;
+    const int sw = WIDE ? BG_MV_WSW : bg_sw(dp);
+    const int ld = bg_ld(sw), entry = ZR * (ld + 8);
+    const int nsl = WIDE ? (dp + BG_MV_WSW - 1) / BG_MV_WSW : 1;
+    const bool xstream = WIDE && xring;
+    uint64_t* full = reinterpret_cast<uint64_t*>(bg_mv_sm);
+    unsigned* freed = reinterpret_cast<unsigned*>(full + BG_MV_SMAX);
+    unsigned char* sx = bg_mv_sm + BG_MV_HDR;
+    unsigned char* ring =
+        sx + (!WIDE ? 1 : xstream ? BG_MV_WS : nsl) * W * BG_MV_WR * ld;
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int rt = (n + R - 1) / R;                 // units a batch item
+    const int units = batch * rt;
+    const int tiles = (m + ZR - 1) / ZR;            // entries a slice
+    const int U = (int)blockIdx.x < units
+        ? (units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+    const float c = gamma * 1.4426950408889634f;
+    // a warp's X slot x (slice x, or the X ring's slot x)
+    auto xslot = [&](int x) { return sx + (x * W + warp) * BG_MV_WR * ld; };
+
+    // Ring entry (i, j, s) of the block's walk (its unit i, Z rows [ZR j,
+    // ZR j + ZR), slice s) into slot `slot`, by the calling warp; the
+    // column pairs ride with the last slice.  full[slot] completes on 33
+    // arrivals (lane 0's expect_tx, then each lane's cp.async) and the
+    // box's bytes.
+    auto issue = [&](int i, int j, int s, int slot) {
+        const int u = blockIdx.x + i * gridDim.x;
+        const long long b = u / rt;
+        unsigned char* dst = ring + slot * entry;
+        const int z0 = j * ZR, s0 = s * sw;
+        // the rows: one TMA box of ld / 2 columns (past dp and m zeros),
+        // so the rows land at the padded pitch ld
+        if (lane == 0) {
+            mbar_expect_tx(&full[slot], ZR * ld);
+            tma_load_3d(dst, &tz, &full[slot], s0, z0, (int)b);
         }
+        if (s == nsl - 1) {
+            float* pr = reinterpret_cast<float*>(dst + ZR * ld);
+#pragma unroll
+            for (int e = lane; e < 2 * ZR; e += 32) {
+                const int col = e % ZR, isv = e / ZR;
+                const int gc = z0 + col;
+                const bool ok = gc < m && (isv || KIND == KIND_RBF);
+                bg_cp(pr + 4 * (col / 2) + 2 * isv + (col & 1),
+                      (isv ? v : zn) + b * m + (gc < m ? gc : 0), 4,
+                      ok ? 4 : 0);
+            }
+        }
+        bg_cp_arrive(&full[slot]);
+    };
+    // slice s of this warp's X rows of unit i into X slot x
+    auto stage_x = [&](int i, int s, int x) {
+        const int u = blockIdx.x + i * gridDim.x;
+        const long long b = u / rt;
+        const int s0 = s * sw;
+        bg_load_frag(xslot(x), X + b * n * dp, n, dp, s0,
+                     WIDE ? bg_mv_w(dp - s0) : sw,
+                     (u % rt) * R + warp * BG_MV_WR, lane);
+    };
+    // the cursor of the entry S further along the walk than this warp's
+    int ii = 0, ij = 0, is = 0;
+    auto advance = [&]() {
+        if (++is == nsl) {
+            is = 0;
+            if (++ij == tiles) {
+                ij = 0;
+                ++ii;
+            }
+        }
+    };
+    // the entry this warp reads: its slot and the parity of its use
+    int slot = 0;
+    uint32_t phase = 0;
+    auto next = [&]() {
+        if (++slot == S) {
+            slot = 0;
+            phase ^= 1u;
+        }
+    };
+    // Done with the entry in `slot`: the last warp to release it issues
+    // the cursor's entry into it (and, streaming X, each warp its slice).
+    auto release = [&]() {
+        __syncwarp();
+        unsigned last = 0;
+        if (lane == 0)
+            last = (bg_release_count(&freed[slot]) & (W - 1)) == W - 1;
+        last = __shfl_sync(0xffffffffu, last, 0);
+        __syncwarp();   // every lane's refill after lane 0's acquire
+        if (ii < U) {
+            if (last) issue(ii, ij, is, slot);
+            if (xstream) stage_x(ii, is, slot);
+        }
+        if (xstream) bg_commit();
+        advance();
+        next();
+    };
+
+    if (tid == 0) {
+        for (int k = 0; k < S; ++k) {
+            mbar_init(&full[k], 33);
+            freed[k] = 0;
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();   // the only block-wide barrier: the barriers are set
+    if (tiles > 0)
+        for (int k = 0; k < S; ++k) {
+            if (ii < U) {
+                if (warp == 0) issue(ii, ij, is, k);
+                if (xstream) stage_x(ii, is, k);
+            }
+            if (xstream) bg_commit();
+            advance();
+        }
+
+    for (int i = 0; i < U; ++i) {
+        const int u = blockIdx.x + i * gridDim.x;
+        const long long b = u / rt;
+        const int r0 = (u % rt) * R + warp * BG_MV_WR;
+        const bool live = r0 < n;                   // the warp has rows
+        float xr[2][2], part[2][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = r0 + 16 * mt + 8 * h + g;
+                xr[mt][h] = (KIND == KIND_RBF && r < n) ? xn[b * n + r] : 0.0f;
+                part[mt][h] = 0.0f;
+            }
+        if (!xstream && live) {   // the warp's rows, staged for the unit
+            __syncwarp();         // the last unit's rows are read
+            for (int s = 0; s < nsl; ++s) stage_x(i, s, s);
+            bg_wait_all();
+            __syncwarp();
+        }
+        // the products of 32 of the entry's Z rows (from row z) into acc;
+        // their transform, times the weights, into part
+        auto products = [&](float (&acc)[2][4][4], const unsigned char* A,
+                            int w, int z) {
+            const unsigned char* B = ring + slot * entry + z * ld;
+            for (int ch = 0; ch < w / 32; ++ch)
+                bg_chunk_f<4>(acc, A, B, ld, ch, g, t, lane);
+        };
+        auto fold = [&](const float (&acc)[2][4][4], int sl, int z) {
+            bg_mv_fold<KIND>(acc, part, xr,
+                             reinterpret_cast<const float4*>(
+                                 ring + sl * entry + ZR * ld) + z / 2,
+                             c, gamma, degree, coef0, t);
+        };
+        if constexpr (!WIDE) {
+            const unsigned char* A = xslot(0);
+            for (int j = 0; j < tiles; ++j) {
+                mbar_wait(&full[slot], phase);
+                if (live)
+#pragma unroll
+                    for (int hf = 0; hf < 2; ++hf) {
+                        float acc[2][4][4];
+                        bg_zero(acc);
+                        products(acc, A, sw, 32 * hf);
+                        fold(acc, slot, 32 * hf);
+                    }
+                release();
+            }
+        } else {
+            for (int j = 0; j < tiles; ++j) {
+                float acc[2][4][4];
+                if (live) bg_zero(acc);
+                for (int s = 0; s < nsl; ++s) {
+                    if (xstream) {   // this warp's slice of X has landed
+                        bg_wait<BG_MV_WS - 1>();
+                        __syncwarp();
+                    }
+                    mbar_wait(&full[slot], phase);
+                    if (live) {
+                        products(acc, xslot(xstream ? slot : s),
+                                 bg_mv_w(dp - s * sw), 0);
+                        if (s == nsl - 1) fold(acc, slot, 0);
+                    }
+                    release();
+                }
+            }
+        }
+        if (live) {
+            // the unit's rows again: recomputed here rather than kept in
+            // registers through the entry loop (they spilled at 128)
+            int iv;
+            asm volatile("mov.b32 %0, %1;\n" : "=r"(iv) : "r"(i));
+            const int uu = blockIdx.x + iv * gridDim.x;
+            float* o = out + (long long)(uu / rt) * n;
+            const int rr = (uu % rt) * R + warp * BG_MV_WR + g;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    float sum = part[mt][h];
+                    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+                    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+                    const int r = rr + 16 * mt + 8 * h;
+                    if (t == 0 && r < n) o[r] = sum;
+                }
+        }
+    }
+    bg_wait_all();
 }
 
 // ------------------------------------------------------------- cd_update --
@@ -1022,11 +1242,6 @@ bg_cd_kernel(const __nv_bfloat16* __restrict__ X,
 
 // ----------------------------------------------------------- entry points --
 
-static int bg_mv_smem(int dp) {
-    return (BG_MV_ROWS + 2 * BG_MV_COLS) * bg_ld(bg_sw(dp))
-           + 4 * BG_MV_COLS * 4;
-}
-
 static bool bg_dp_ok(int dp) { return dp >= 8 && dp % 8 == 0; }
 
 static int bg_sms = 0;
@@ -1156,17 +1371,64 @@ static int bg_mv_launch(const void* X, const float* xn, const void* Z,
                         int batch, int n, int m, int dp, float gamma,
                         int degree, float coef0, cudaStream_t stream) {
     static bool attr[2] = {false, false};
-    const bool wide = dp > BG_SLICE;
+    const bool wide = dp > BG_MV_DP;
     auto kernel = wide ? bg_matvec_kernel<KIND, true>
                        : bg_matvec_kernel<KIND, false>;
-    const int smem = bg_mv_smem(dp);
-    int err = bg_smem_attr(kernel, bg_mv_smem(BG_SLICE), attr[wide]);
+    int err = bg_smem_attr(kernel, BG_SMEM_MAX, attr[wide]);
     if (err) return err;
-    if (batch > 65535) return BG_REFUSED;
-    dim3 grid((unsigned)((n + BG_MV_ROWS - 1) / BG_MV_ROWS), (unsigned)batch);
-    kernel<<<grid, 256, smem, stream>>>(
-        (const __nv_bfloat16*)X, xn, (const __nv_bfloat16*)Z, zn, v, out, n,
-        m, dp, gamma, degree, coef0);
+    // as many ring entries as fit beside the X slots (at most BG_MV_SMAX);
+    // the wide form stages a unit's X rows whole where that leaves room
+    // for BG_MV_WS entries, else streams them (xring, BG_MV_WS entries)
+    const int ld = bg_mv_ld(dp, wide), e = bg_mv_entry(ld, wide);
+    auto fit = [&](int xring, int room) {
+        const int s = (room - bg_mv_smem(dp, wide, xring, 0)) / e;
+        return s < BG_MV_SMAX ? s : BG_MV_SMAX;
+    };
+    const int two = BG_SM_SMEM / 2 - 1024;   // two blocks an SM
+    int S = fit(0, two), xring = 0;
+    if (S < (wide ? BG_MV_WS : 2))            // one block an SM
+        S = fit(0, BG_SMEM_MAX);
+    if (wide && S < BG_MV_WS) {               // X streamed under the ring
+        xring = 1;
+        S = BG_MV_WS;
+    }
+    if (S < 2 || bg_mv_smem(dp, wide, xring, S) > BG_SMEM_MAX)
+        return BG_REFUSED;
+    // Z's rows through TMA: a (dp, m, batch) bf16 map, a box of ld / 2
+    // columns (the row and its padding to the pitch, past dp zeros) x one
+    // entry's rows; rows past m read as zeros
+    CUtensorMap tz;
+    memset(&tz, 0, sizeof(tz));
+    if (m > 0) {
+        EncodeTiled fn = encode_tiled();
+        if (fn == nullptr) return (int)cudaErrorNotSupported;
+        const cuuint64_t dims[3] = {(cuuint64_t)dp, (cuuint64_t)m,
+                                    (cuuint64_t)batch};
+        const cuuint64_t strides[2] = {(cuuint64_t)dp * 2,
+                                       (cuuint64_t)m * dp * 2};
+        const cuuint32_t box[3] = {(cuuint32_t)(ld / 2),
+                                   (cuuint32_t)bg_mv_zr(wide), 1};
+        const cuuint32_t unit[3] = {1, 1, 1};
+        const CUresult r = fn(&tz, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                              const_cast<void*>(Z), dims, strides, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+        if (r != CUDA_SUCCESS) return BG_REFUSED;
+    }
+    const int smem = bg_mv_smem(dp, wide, xring, S);
+    const int threads = BG_MV_WARPS * 32;
+    int occ;
+    if ((err = bg_occupancy(kernel, threads, smem, &occ))) return err;
+    const int R = BG_MV_WARPS * BG_MV_WR;
+    const long long units = (long long)batch * ((n + R - 1) / R);
+    if (units > 2147483647LL) return BG_REFUSED;
+    const long long slots = (long long)occ * bg_sms;
+    const int grid = (int)(units < slots ? units : slots);
+    kernel<<<grid, threads, smem, stream>>>(
+        tz, (const __nv_bfloat16*)X, xn, zn, v, out, batch, n, m, dp, S,
+        xring, gamma, degree, coef0);
     return (int)cudaGetLastError();
 }
 

@@ -75,11 +75,10 @@
 // shared memory, and the thread accumulates output columns tx + 16 c.
 // Tiles: BK = 64 keys at hd = 64 and 128 (66 KB and 115 KB of shared
 // memory), BK = 32 at hd = 256 (141 KB).
-#include <cuda.h>            // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "tma.cuh"
 
 #define FA_MASKED (-1e30f)  // the reference's causal fill and initial max
 
@@ -287,64 +286,6 @@ struct FaCfg {
     static_assert(HD % 64 == 0 && BK % 16 == 0 && BK <= 256, "tile");
     static_assert(SMEM <= 232448, "shared memory");
 };
-
-__device__ __forceinline__ uint32_t fa_smem(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(fa_smem(bar)), "r"(count) : "memory");
-}
-
-// One arrival that also expects `bytes` of TMA transactions.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(fa_smem(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                 :: "r"(fa_smem(bar)) : "memory");
-}
-
-__device__ __forceinline__ uint64_t fa_ns() {
-    uint64_t t;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-    return t;
-}
-
-// Waits for the completion of the barrier's phase of parity `parity`.  A
-// lost arrival would wait forever: after a second the kernel traps, so
-// the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    const uint32_t a = fa_smem(bar);
-    uint64_t t0 = 0;
-    for (;;) {
-        uint32_t done;
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done) : "r"(a), "r"(parity) : "memory");
-        if (done) return;
-        if (t0 == 0) t0 = fa_ns();
-        else if (fa_ns() - t0 > 1000000000ull) __trap();
-    }
-}
-
-// TMA: the box at (c0, c1, c2, c3) of a 4-D tensor map into shared memory,
-// completing `bytes` of the barrier's transactions.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-        :: "r"(fa_smem(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-           "r"(fa_smem(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-        : "memory");
-}
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets (all >> 4).  K-major: rows of 128 bytes, eight
@@ -571,7 +512,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                 if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
                 mbar_expect_tx(q_full, C::Q_BYTES);
                 for (int c = 0; c < HD / 64; ++c)
-                    tma_load(sQ + c * C::SLAB_Q, &tq, q_full, 64 * c, w.h,
+                    tma_load_4d(sQ + c * C::SLAB_Q, &tq, q_full, 64 * c, w.h,
                              w.r0, w.b);
                 for (int t = 0; t < w.n_tiles; ++t, ++it) {
                     const int s = it % STAGES;
@@ -581,12 +522,12 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                     if (it >= STAGES) mbar_wait(&k_empty[s], par);
                     mbar_expect_tx(&k_full[s], C::KV_BYTES);
                     for (int c = 0; c < HD / 64; ++c)
-                        tma_load(kd + c * C::SLAB_KV, &tk, &k_full[s], 64 * c,
+                        tma_load_4d(kd + c * C::SLAB_KV, &tk, &k_full[s], 64 * c,
                                  hk, t * BK, w.b);
                     if (it >= STAGES) mbar_wait(&v_empty[s], par);
                     mbar_expect_tx(&v_full[s], C::KV_BYTES);
                     for (int c = 0; c < HD / 64; ++c)
-                        tma_load(vd + c * C::SLAB_KV, &tv, &v_full[s], 64 * c,
+                        tma_load_4d(vd + c * C::SLAB_KV, &tv, &v_full[s], 64 * c,
                                  hk, t * BK, w.b);
                 }
             }
@@ -599,7 +540,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         // this thread's rows (item-local): row_lo and row_lo + 8
         const int row_lo = 64 * wg + 16 * (tid / 32) + lane / 4;
         const int col = 2 * (lane % 4);         // + 8 (i / 4) + i % 2
-        const uint32_t q_addr = fa_smem(sQ) + wg * 64 * 128;
+        const uint32_t q_addr = smem_u32(sQ) + wg * 64 * 128;
 
         float sc[BK / 2], oc[HD / 2];
 #pragma unroll
@@ -612,7 +553,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         // S = Q K^T of tile t into sc (issued, not waited for)
         auto issue_s = [&](int t) {
             const int it = it0 + t;
-            const uint32_t k_addr = fa_smem(sK + (it % STAGES) * C::KV_BYTES);
+            const uint32_t k_addr = smem_u32(sK + (it % STAGES) * C::KV_BYTES);
             mbar_wait(&k_full[it % STAGES], (it / STAGES) & 1);
             __syncwarp();
             reg_fence(sc);
@@ -630,7 +571,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         // O += P V of tile t (issued, not waited for)
         auto issue_pv = [&](int t) {
             const int it = it0 + t;
-            const uint32_t v_addr = fa_smem(sV + (it % STAGES) * C::KV_BYTES);
+            const uint32_t v_addr = smem_u32(sV + (it % STAGES) * C::KV_BYTES);
             mbar_wait(&v_full[it % STAGES], (it / STAGES) & 1);
             __syncwarp();
             reg_fence(oc);
@@ -779,32 +720,6 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
             }
         }
     }
-}
-
-// cuTensorMapEncodeTiled, taken from the CUDA driver API through the runtime.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-    static EncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        cudaError_t err = cudaGetDriverEntryPoint(
-            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-            fn = (EncodeTiled)p;
-    }
-    return fn;
 }
 
 // A 4-D bf16 map over (hd, H, S, B) with element strides (sh, ss, sb), a

@@ -848,6 +848,75 @@ def test_cuda_bf16_kermat_symmetric_persistent(cuda_device, kw, shape):
               2e-5)
 
 
+# (batch, n, m): n % 256 (a unit's rows) in {1, 255}, n below one unit,
+# m % 64 (a ring entry; 32 in the wide form) in {0, 1, 63}, m below one
+# entry, and 305 units of a batch of 5, more than the persistent grid's
+# blocks (two an SM of the 132, one in the wide form)
+MV_EDGES = [(1, 1, 64 * 3), (1, 100, 20), (1, 257, 64 * 3 + 1),
+            (1, 511, 64 * 3 + 63), (5, 256 * 60 + 1, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", KINDS, ids=[k["kind"] for k in KINDS])
+@pytest.mark.parametrize("d", [54, 300, 600],
+                         ids=["one-slice", "wide", "wide-x-streamed"])
+def test_cuda_bf16_matvec_ragged_persistent(cuda_device, kw, d):
+    """kernel_matvec_bf16's persistent grid and Z ring at their edges
+    (``MV_EDGES``), one-slice, wide with a unit's X rows staged whole
+    (300) and wide with X streamed under the ring (600), held to the
+    plain version at 2e-5 of 1 + sum_j |K_ij w_j|."""
+    rng = np.random.default_rng(d)
+    kern = Kernel(**dict(kw, gamma=1.0 / d if kw["kind"] == "rbf"
+                         else kw.get("gamma", 1.0) * 17 / d))
+    for b, n, m in MV_EDGES:
+        X = _rows(rng, (b, n, d), cuda_device)
+        Z = _rows(rng, (b, m, d), cuda_device)
+        v = torch.tensor(rng.standard_normal((b, m)), dtype=torch.float32,
+                         device=cuda_device)
+        got = ops.kernel_matvec(ops.pack_bf16(X), ops.pack_bf16(Z), v, kern,
+                                compute_dtype=BF)
+        Xc, Zc, vc = X.cpu(), Z.cpu(), v.cpu()
+        want = ref.kernel_matvec_bf16_ref(Xc, Zc, vc, **_rkw(kern))
+        mag = ref.kernel_matvec_bf16_ref(Xc, Zc, vc.abs(), **_rkw(kern))
+        _mv_close(got.cpu(), want, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 54, 300, 600])
+def test_cuda_bf16_forms_repeat_bit_identical(cuda_device, d):
+    """Each bf16 form, launched 100 times more on the same inputs, equal
+    bit for bit to its first launch: the matvec at the ring's edges
+    (``MV_EDGES``), kermat_bf16 and cd_column_update_bf16 (B 2, 64, 257)
+    at the shapes of ``test_cuda_bf16_forms_match_plain_versions``, every
+    kind.  Their sums run in a fixed order, so a launch that differs has
+    raced on shared memory."""
+    rng = np.random.default_rng(d + 1)
+
+    def rows(shape):
+        return ops.pack_bf16(_rows(rng, shape, cuda_device))
+
+    def gauss(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=cuda_device)
+
+    for kw in KINDS:
+        gamma = kw.get("gamma", 1.0) * min(1.0, 17 / d)
+        kern = Kernel(**dict(kw, gamma=gamma))
+        calls = []
+        for b, n, m in MV_EDGES:
+            calls.append((ops.kernel_matvec, rows((b, n, d)),
+                          rows((b, m, d)), gauss((b, m))))
+        X, s = rows((333, d)), torch.sign(gauss(333))
+        calls.append((ops.kernel_matrix, X, rows((517, d))))
+        for B in (2, 64, 257):
+            calls.append((ops.cd_column_update, X, s, rows((B, d)),
+                          gauss(B)))
+        for fn, *args in calls:
+            first = fn(*args, kern, compute_dtype=BF)
+            for _ in range(100):
+                assert torch.equal(fn(*args, kern, compute_dtype=BF), first)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 63, 64, 65, 257, 1000])
 def test_cuda_bf16_cd_column_update_ragged(cuda_device, B):
@@ -953,17 +1022,21 @@ def test_cuda_bf16_pack_matches_plain(cuda_device, d):
 
 @pytest.mark.cuda
 def test_cuda_bf16_redesigned_kernels_sass(cuda_device):
-    """The persistent kermat_bf16 and cd_column_update_bf16 kernels (every
-    kind, one-slice and wide) hold tensor-core products (HMMA) and
-    asynchronous copies (LDGSTS), and no local memory (LDL/STL: spills);
-    bf16_pack holds no local memory either."""
-    counts = build.sass_counts("bf16_gram", ("HMMA", "LDGSTS", "LDL", "STL"))
-    for key in ("bg_kermat_kernel", "bg_cd_kernel"):
+    """The persistent kermat_bf16, kernel_matvec_bf16 and
+    cd_column_update_bf16 kernels (every kind, one-slice and wide) hold
+    tensor-core products (HMMA) and asynchronous copies (LDGSTS; the
+    matvec's Z ring also TMA, UTMALDG), and no local memory (LDL/STL:
+    spills); bf16_pack holds no local memory either."""
+    counts = build.sass_counts("bf16_gram",
+                               ("HMMA", "LDGSTS", "UTMALDG", "LDL", "STL"))
+    for key in ("bg_kermat_kernel", "bg_matvec_kernel", "bg_cd_kernel"):
         fns = {fn: c for fn, c in counts.items() if key in fn}
         assert len(fns) == 6, (key, counts)
         for fn, c in fns.items():
             assert c["HMMA"] > 0 and c["LDGSTS"] > 0, (fn, c)
             assert c["LDL"] == 0 and c["STL"] == 0, (fn, c)
+            if key == "bg_matvec_kernel":
+                assert c["UTMALDG"] > 0, (fn, c)
     pack = {fn: c for fn, c in counts.items() if "bg_pack_kernel" in fn}
     assert len(pack) == 1
     assert all(c["LDL"] == 0 and c["STL"] == 0 for c in pack.values()), pack
