@@ -5,8 +5,9 @@
 
 Run from the root of a checkout on a machine with one GPU and the CUDA
 toolkit.  It builds the hand-written kernels from src/repro_torch/kernels/
-csrc/ with nvcc (into build/repro_torch_kernels/) and runs nine phases
-(phases 8 and 9 run before phase 7, 9(a) before 8(b)):
+csrc/ with nvcc (into build/repro_torch_kernels/; bf16_gram.cu also as
+its ring check build) and runs ten phases (phase 10 runs after phase 6,
+phases 8 and 9 before phase 7, 9(a) before 8(b)):
 
 1. environment: card, power limit, versions, kernel build time and each
    kernel's registers and spills (ptxas -v); TF32 off;
@@ -33,7 +34,9 @@ csrc/ with nvcc (into build/repro_torch_kernels/) and runs nine phases
    sum_j |K_ij w_j|, where the f32 form on the unrounded operands and a
    form without its last Z stage must fail), with its bound (bf16 products
    at 989 TFLOP/s, one exp a pair, the bytes of d columns a row) and the
-   bf16 torch.matmul of the products alone;
+   bf16 torch.matmul of the products alone; the slice forms at d = 300,
+   and kernel_matvec's slice form with X streamed under its ring at
+   (16,384, 600)^2 (the plain version over its last 1,024 rows);
 3. a fit through the kernels against a fit through the plain versions on
    the card, levels = 2, full_gram_threshold = 4096 (so level 0 takes the
    Gram-free engines), n = 8192, for C-SVC on covtype_like (d = 54, gamma
@@ -46,7 +49,10 @@ csrc/ with nvcc (into build/repro_torch_kernels/) and runs nine phases
    compute_dtype="bfloat16" and with host_spill (a gram_budget of four
    panels): same objective to 1e-4 relative, rho to 1e-4 of 1 + |rho|,
    the same predictions, the kernels of each level 0 launched by the
-   kernel fit, a cached fit's hits + misses = iterations x 64;
+   kernel fit, a cached fit's hits + misses = iterations x 64; the first
+   kernel fit again with DCSVMConfig(trace=4096): the same alphas bit for
+   bit and the same launches, level 0's ring fetched into its stats, a
+   sample an iteration;
 4. the main path: binary C-SVC on covtype_like at the paper's covtype
    split (464,810 training points, 116,202 queries, d = 54), k = 4,
    levels = 4, m = 1000, C = 8, gamma = 1, the default 30,000 coordinate
@@ -70,6 +76,17 @@ csrc/ with nvcc (into build/repro_torch_kernels/) and runs nine phases
 6. the solver loops' cost per step at the main path's shapes: wall time
    without the profiler, device time from torch.profiler, and their ratio,
    the device's busy share; the level-0 iteration graphed and eager;
+10. the observability layer and the bf16 rings: (a) the bounded ring
+   stress check (kernels/ring_stress.py: every bf16 form at its ring's
+   edges, each launch bit for bit the first, then the matvec's Z ring
+   under the ring check build: entry tags when full and at release, slot
+   counts, also forced to 2 entries); (b) level 0's block CD, its cached
+   bf16 branch, the pairwise and the blocked (B = 64) equality steps and
+   the spill panel step on 4,096 covtype_like rows, traced, graphed
+   against eager bit for bit (ring included), and untraced graphed with
+   the same results and launches; (c) the cost of tracing a graphed
+   level-0 iteration at phase 6's shape: device ms an iteration and
+   device operations a replay from torch.profiler, untraced and traced;
 8. (a) one-class SVM (nu 0.1, gamma 1, k 4, levels 4, eq_block_size 1) on
    the covtype_like training rows: level 0 runs the pairwise matvec engine
    (cd_column_update at B = 2 a pair step, kernel_matvec a refresh);
@@ -87,9 +104,9 @@ csrc/ with nvcc (into build/repro_torch_kernels/) and runs nine phases
    objective of the bf16 alpha, the cache counters (hits + misses =
    iterations x 64), seconds a level, launches a kernel, and kernel_matvec's
    bf16 form at decision_exact's shape; (b) the spill tier:
-   fit(host_spill=True) on 32,768 covtype_like rows (a cut of the split,
-   whose f32 level-0 Gram of 864 GB no host holds) with gram_budget 1 GiB
-   (a quarter of the 4 GiB Gram a device slot, the host tier pinned):
+   fit(host_spill=True) on 16,384 covtype_like rows (a cut of the split,
+   whose f32 level-0 Gram of 864 GB no host holds) with gram_budget 256
+   MiB (a quarter of the 1 GiB Gram a device slot, the host tier pinned):
    rounds, panels, counters, H2D GB/s, the share of the copies' time
    hidden behind the sub-solves, seconds and objective against the
    in-memory fit (1e-3 relative);
@@ -224,12 +241,22 @@ BF16_SOURCES = {
 BF16_CACHE = 4096                       # phase 9(a): column-cache rows (bf16)
 # phase 9(b): the spill tier on SPILL_N covtype_like rows (a cut of the
 # 464,810-row split, whose f32 level-0 Gram of 864 GB no host holds): the
-# Gram is 4 GiB, the device budget a quarter of it (65,536 rows and a 16
-# GiB Gram until the whole smoke ran 1,181-1,260 s of its 1,200 on some
-# hosts; the phase took about 240 s of it)
-SPILL_N, SPILL_N_TEST = 32_768, 16_384
+# Gram is 1 GiB, the device budget a quarter of it (65,536 rows until the
+# whole smoke ran 1,181-1,260 s of its 1,200 on some hosts, then 32,768
+# until it ran 1,217.9 s on a slow host with phase 10; the phase took
+# 87-105 s of it)
+SPILL_N, SPILL_N_TEST = 16_384, 8_192
 SPILL_BUDGET = SPILL_N * SPILL_N   # bytes: a quarter of the f32 Gram
 PHASE3_CACHE = 2048                     # phase 3's cached fit
+FIT_TRACE = 4096                        # phase 3: level 0's ring a class
+# phase 2: kernel_matvec_bf16's slice form with X streamed under its ring
+# (packed rows past 384 columns), uniform rows, gamma 6 / XS_D
+XS_D, XS_N = 600, 16_384
+# phase 10: the ring stress check's launches a form (and under the check
+# build), the traced engines' rows, the iterations of the tracing cost
+RING_LAUNCHES, RING_CHECK_LAUNCHES = 300, 50
+TRACE_N = 4096
+TRACE_COST_ITERS = 24
 PHASE3_SPILL_BUDGET = 2048 * FIT_N * 4  # phase 3's spill fit: 4 panels
 MAIN: dict = {}                         # phase 4's numbers, for phase 9(a)
 ASSIGN_TOL = 1e-4                       # kmeans_assign scores (absolute)
@@ -706,6 +733,8 @@ def phase_fit_parity(torch, datasets):
                 f"level0_pg_max={st0['pg_max']:.3e} n_sv={st0['n_sv']} "
                 f"levels_s={[round(s_['train_time'], 2) for s_ in model.level_stats]} "
                 + _cache_line(st0) + " kernels " + json.dumps(launches))
+            if use and name == datasets[0][0]:
+                traced_fit(torch, c, X, y, model, launches)
         (ok, rk, dk, pk, lk), (op, rp, dp, pp, _) = out[True], out[False]
         if not abs(ok - op) <= 1e-4 * abs(op):
             raise AssertionError(f"{name}: objectives differ: {ok} vs {op}")
@@ -738,6 +767,42 @@ def phase_fit_parity(torch, datasets):
                                  f"{missing}")
         fit_launches[name] = lk
     return fit_launches
+
+
+def traced_fit(torch, cfg, X, y, untraced, launched):
+    """The kernel fit ``untraced`` of ``cfg`` again with DCSVMConfig(trace=
+    FIT_TRACE): the same alphas bit for bit and the same launches, and
+    level 0's ring fetched into its stats, a sample an iteration."""
+    import dataclasses
+
+    from repro_torch.core import fit
+    from repro_torch.kernels import ops
+
+    c = dataclasses.replace(cfg, trace=FIT_TRACE)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    model = fit(c, X, y, device=DEV)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st0 = model.level_stats[-1]
+    ring = st0.get("trace")
+    same = torch.equal(model.alpha, untraced.alpha)
+    log(f"fit traced (trace={FIT_TRACE}) n={X.shape[0]}: fit_s={t_fit:.2f} "
+        f"alphas equal to the untraced fit's: {same}; launches equal: "
+        f"{launches == launched}; level 0 trace "
+        + json.dumps(st0.get("trace_summary")) + f" over {st0['iters']} "
+        "iterations")
+    if not (same and launches == launched):
+        raise AssertionError(f"the traced fit differs from the untraced one: "
+                             f"alphas equal {same}, launches {launches} vs "
+                             f"{launched}")
+    if not (isinstance(ring, list) and len(ring) == 1
+            and ring[0]["samples"] > 0
+            and ring[0]["samples"] + ring[0]["dropped"] == st0["iters"]):
+        raise AssertionError(f"level 0's trace {st0.get('trace_summary')} "
+                             f"against {st0['iters']} iterations")
 
 
 def _level0_kernels(cfg):
@@ -2078,6 +2143,14 @@ def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
     Xs16 = Xs.to(torch.bfloat16)
     vs = torch.randn(WIDE_N, device=DEV, generator=gen)
     top = slice(0, F64_ROWS)
+    # the X-streamed slice form: its plain version over the last rows
+    kern_x = Kernel("rbf", gamma=6.0 / XS_D)
+    rkw_x = dict(kind="rbf", gamma=6.0 / XS_D)
+    Xx = torch.rand(XS_N, XS_D, device=DEV, generator=gen)
+    Px, Xx16 = ops.pack_bf16(Xx), Xx.to(torch.bfloat16)
+    vx = torch.randn(XS_N, device=DEV, generator=gen)
+    lastx = slice(XS_N - NXN_ROWS, XS_N)
+    lastx64 = slice(XS_N - F64_ROWS, XS_N)
 
     cases = {
         "kermat_bf16": dict(
@@ -2218,6 +2291,26 @@ def phase_bf16_kernels(torch, Xtr, cfg_main, k_leaves, Xf):
             tol=MV_BF16_TOL, reps=5,
             shape=f"slice form ({WIDE_N}, {WIDE_D}) x ({WIDE_N}, {WIDE_D}), "
                   "packed"),
+        "kernel_matvec_bf16_xstream": dict(
+            run=lambda: ops.kernel_matvec(Px, Px, vx, kern_x,
+                                          compute_dtype=BF),
+            plain=lambda: ref.kernel_matvec_bf16_ref(Xx[lastx], Xx, vx,
+                                                     **rkw_x),
+            matmul=lambda: Xx16 @ Xx16.T,
+            pairs=XS_N * XS_N, depth=XS_D,
+            bytes=pbytes(XS_N, XS_D) + 8 * XS_N, rows=lastx,
+            mag=lambda: ref.kernel_matvec_bf16_ref(Xx[lastx], Xx, vx.abs(),
+                                                   **rkw_x),
+            f64=lambda got, want: (got[lastx64], want[-F64_ROWS:], *(
+                rbf_f64(q(Xx[lastx64]), q(Xx), 6.0 / XS_D) @ w_.double()
+                for w_ in (vx, vx.abs()))),
+            controls=lambda: {DROP: rbf_f64(q(Xx[lastx64]), q(Xx),
+                                            6.0 / XS_D)
+                              @ drop_last_stage(vx).double()},
+            tol=MV_BF16_TOL, reps=5,
+            shape=f"slice form with X streamed under the ring ({XS_N}, "
+                  f"{XS_D}) x ({XS_N}, {XS_D}), packed, plain over the last "
+                  f"{NXN_ROWS} rows"),
         "kermat_bf16_wide": dict(
             run=lambda: ops.kernel_matrix(Psn, Psn, kern_w, compute_dtype=BF),
             plain=lambda: ref.kermat_bf16_ref(Xsn, Xsn, **rkw_w),
@@ -2406,7 +2499,7 @@ def phase_bf16_main(torch, Xtr, ytr, Xte, yte, cfg, main):
 def phase_spill(torch):
     """Phase 9(b): the spill tier.  fit(host_spill=True) on SPILL_N
     covtype_like rows with gram_budget SPILL_BUDGET: the f32 level-0 Gram is
-    SPILL_N^2 x 4 bytes (4 GiB), the device pool holds a quarter of it a
+    SPILL_N^2 x 4 bytes (1 GiB), the device pool holds a quarter of it a
     slot (as benchmarks/bench_outofcore.py sizes it) and the pinned host
     tier all of it.  Rounds, panels, counters, H2D GB/s, the share of the
     panel copies' time that overlapped a sub-solve, the fit's seconds and
@@ -2498,6 +2591,157 @@ def phase_spill(torch):
                                 spill=sp, memory=mem)
 
 
+def _same_ring(torch, a, b) -> bool:
+    """Two rings equal bit for bit (NaN where nothing was recorded)."""
+    return (torch.equal(a.buf.view(torch.int32), b.buf.view(torch.int32))
+            and torch.equal(a.count, b.count))
+
+
+def phase_trace(torch, Xtr, ytr, cfg):
+    """Phase 10: (a) ROADMAP C4's bounded ring stress check
+    (``kernels/ring_stress.py`` at RING_LAUNCHES launches a form, and
+    RING_CHECK_LAUNCHES under the ring check build); (b) the traced
+    level-0 engines on TRACE_N rows, graphed against eager (bit for bit,
+    ring included, the same launches), and untraced graphed (the traced
+    results, the same launches); (c) device ms a graphed level-0
+    iteration at phase 6's shape and device operations a replay,
+    untraced and traced (torch.profiler over TRACE_COST_ITERS
+    replays, net of the solve's set-up)."""
+    from repro_torch.core import gramop
+    from repro_torch.core import solver as S
+    from repro_torch.kernels import ops, ring_stress
+    from repro_torch.obs.trace import trace_fetch, trace_init
+
+    t0 = time.perf_counter()
+    res = ring_stress.stress(RING_LAUNCHES, RING_CHECK_LAUNCHES)
+    ring = {name: dict(
+        launches=r["launches"], mismatches=len(r["mismatches"]),
+        **{key: {k: r[key][k] for k in ("launches", "faults", "checked",
+                                        "stages", "blocks_per_sm", "xring")
+                 if k in r[key]}
+           for key in ("check", "forced") if key in r})
+        for name, r in res.items()}
+    log(f"phase 10(a) ring stress ({time.perf_counter() - t0:.2f}s): "
+        + json.dumps(ring))
+    bad = ring_stress.failures(res)
+    if bad:
+        raise AssertionError(f"ring stress check: {bad}")
+
+    n = TRACE_N
+    X, y = Xtr[:n].contiguous(), ytr[:n].contiguous()
+    kern = cfg.kernel
+    ones = torch.ones(n, device=DEV)
+
+    def level0(cd, cache):
+        return lambda g, t: S.solve_box_qp_op(
+            gramop.GramOperator(Xd=X, s=y, kernel=kern, use_kernels=True,
+                                compute_dtype=cd),
+            cfg.C, tol=1e-3, max_iters=150, cache_cap=cache, graph=g,
+            trace=t)
+
+    engines = {
+        "level-0 block CD": level0(None, 0),
+        "cached bf16 branch": level0("bfloat16", 512),
+        "pairwise equality step": lambda g, t: S.solve_eq_qp_matvec(
+            X, ones, kern, 1.0, 1.0, 0.1 * n, tol=1e-3, max_iters=600,
+            use_kernels=True, graph=g, trace=t),
+        # 6 iterations (a graph captured and replayed): 0.3-0.45 s each
+        # at these rows (Z5, Z6)
+        "blocked equality step": lambda g, t: S.solve_eq_qp_matvec(
+            X, ones, kern, 1.0, 1.0, 0.1 * n, tol=1e-3, max_iters=6,
+            use_kernels=True, block=64, graph=g, trace=t),
+        "spill panel step": lambda g, t: gramop.solve_box_qp_spill(
+            gramop.GramOperator(Xd=X, s=y, kernel=kern, use_kernels=True),
+            cfg.C, tol=1e-3, max_iters=400, block=64,
+            device_budget_bytes=1024 * n * 4, graph=g, trace=t)}
+    checked = {}
+    for name, run in engines.items():
+        t0 = time.perf_counter()
+        out, launches = {}, {}
+        for key in ((False, True), (True, True), (True, False)):
+            graph, traced = key
+            torch.cuda.synchronize()
+            before = dict(ops.LAUNCHES)
+            out[key] = run(graph, trace_init(256, device=DEV)
+                           if traced else None)
+            torch.cuda.synchronize()
+            launches[key] = {k: ops.LAUNCHES[k] - before[k] for k in before
+                             if ops.LAUNCHES[k] != before[k]}
+        eager, graphed, plain = (out[False, True], out[True, True],
+                                 out[True, False])
+        same = all(
+            _same_ring(torch, a, b) if f == "trace" else
+            ((a is None and b is None) or torch.equal(a, b))
+            for f in S.SolveResult._fields
+            for a, b in [(getattr(eager, f), getattr(graphed, f))])
+        untraced = all(torch.equal(getattr(plain, f), getattr(graphed, f))
+                       for f in ("alpha", "grad", "iters", "pg_max"))
+        fetched = trace_fetch(graphed.trace)
+        checked[name] = dict(iters=int(graphed.iters),
+                             samples=fetched["samples"],
+                             dropped=fetched["dropped"],
+                             graphed_equals_eager=same,
+                             untraced_equals_traced=untraced,
+                             launches=launches[True, True],
+                             seconds=time.perf_counter() - t0)
+        log(f"phase 10(b) {name}, traced: " + json.dumps(checked[name]))
+        if not (same and untraced and plain.trace is None):
+            raise AssertionError(f"{name}: traced graphed {same}, untraced "
+                                 f"{untraced}")
+        if not launches[False, True] == launches[True, True] == launches[
+                True, False]:
+            raise AssertionError(f"{name}: launches differ: {launches}")
+        if not launches[True, True] or fetched["samples"] == 0:
+            raise AssertionError(f"{name}: no kernel launch or no sample")
+        if name != "spill panel step" and (fetched["samples"]
+                                           + fetched["dropped"]
+                                           != int(graphed.iters)):
+            raise AssertionError(f"{name}: {fetched['samples']} + "
+                                 f"{fetched['dropped']} samples of "
+                                 f"{int(graphed.iters)} iterations")
+        del out
+        torch.cuda.empty_cache()
+
+    op = gramop.GramOperator(Xd=Xtr, s=ytr, kernel=kern, use_kernels=True)
+
+    def solve(steps, traced):
+        return S.solve_box_qp_op(
+            op, cfg.C, tol=-1.0, max_iters=steps, graph=True,
+            trace=trace_init(FIT_TRACE, device=DEV) if traced else None)
+
+    # device time of the replays: the profiled run of base + TRACE_COST_
+    # ITERS iterations less that of base (both capture: base > GRAPH_
+    # WARMUP), by kernel, as phase 6 takes it; and the device operations
+    # (kernels, copies) a replay.  The profiler costs about 0.14 s a
+    # replay here (some 1,350 device operations each) and 7 s a turn,
+    # hence few replays and one turn of each kind.
+    t0 = time.perf_counter()
+    per, ops_per = {}, {}
+    base = 4
+    for traced in (False, True):
+        solve(base + 2, traced)
+        full = counted_device_ms(torch, lambda: solve(
+            base + TRACE_COST_ITERS, traced))
+        setup = counted_device_ms(torch, lambda: solve(base, traced))
+        grown = [(ms - setup.get(key, (0.0, 0))[0],
+                  count - setup.get(key, (0.0, 0))[1])
+                 for key, (ms, count) in full.items()
+                 if count > setup.get(key, (0.0, 0))[1]]
+        per[traced] = sum(ms for ms, _ in grown) / TRACE_COST_ITERS
+        ops_per[traced] = sum(c for _, c in grown) / TRACE_COST_ITERS
+    cost = dict(untraced_ms=per[False], traced_ms=per[True],
+                untraced_ops=ops_per[False], traced_ops=ops_per[True],
+                shape=f"level-0 block CD ({Xtr.shape[0]}, B=64), graphed, "
+                      f"ring of {FIT_TRACE}",
+                seconds=time.perf_counter() - t0)
+    log(f"phase 10(c) tracing cost: device ms a graphed level-0 iteration "
+        f"(torch.profiler, over {TRACE_COST_ITERS} replays) untraced "
+        f"{per[False]} traced {per[True]}; device operations a replay "
+        f"untraced {ops_per[False]} traced {ops_per[True]} "
+        f"({cost['shape']})")
+    return dict(ring=ring, engines=checked, trace_cost=cost)
+
+
 def main() -> int:
     import torch
 
@@ -2528,7 +2772,8 @@ def main() -> int:
     log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    libs = build.build_all(verbose=True)    # ptxas -v: registers, spills
+    # ptxas -v: registers, spills; the ring check build for phase 10(a)
+    libs = build.build_all(verbose=True, variants=True)
     log(f"kernel build: {time.perf_counter() - t0:.2f}s "
         f"({', '.join(p.name for p in libs.values())})")
 
@@ -2607,6 +2852,11 @@ def main() -> int:
     t0 = time.perf_counter()
     level0 = phase_loops(torch, Xtr, ytr, cfg)
     log(f"phase loops: {time.perf_counter() - t0:.2f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    observed = phase_trace(torch, Xtr, ytr, cfg)
+    log(f"phase observability and rings (10): "
+        f"{time.perf_counter() - t0:.2f}s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     oc_launches, _ = phase_oneclass(torch, Xtr, Xte)
@@ -2693,7 +2943,9 @@ def main() -> int:
                                 "wide": "kermat_bf16_wide"},
                 "kernel_matvec_bf16": {"nxn": "kernel_matvec_bf16_nxn",
                                        "exact": "kernel_matvec_bf16_exact",
-                                       "wide": "kernel_matvec_bf16_wide"},
+                                       "wide": "kernel_matvec_bf16_wide",
+                                       "xstream":
+                                           "kernel_matvec_bf16_xstream"},
                 "cd_column_update_bf16": {
                     "dedup": "cd_column_update_bf16_dedup",
                     "wide": "cd_column_update_bf16_wide"}}
@@ -2734,6 +2986,7 @@ def main() -> int:
                                         "hidden_share")},
         "spill_fit_s": spill["spill"]["fit_s"],
         "memory_fit_s": spill["memory"]["fit_s"]}, default=str))
+    log("phase 10: " + json.dumps(observed, default=str))
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

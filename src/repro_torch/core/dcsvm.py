@@ -33,6 +33,8 @@ from repro_torch.core.kkmeans import Partition, two_step_kernel_kmeans
 from repro_torch.core.tasks import CSVC, Task, TaskDual, resolve_task
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 from repro_torch.obs.spans import span
+from repro_torch.obs.trace import (ConvTrace, trace_fetch, trace_init,
+                                   trace_summary)
 
 # ``draws(level, n, m_sample) -> (sample_idx, init_perm)``: the random draws
 # of one level's two-step k-means (the sample is used only when the level
@@ -43,8 +45,7 @@ Draws = Callable[[int, int, int], Tuple[np.ndarray, np.ndarray]]
 @dataclasses.dataclass(frozen=True)
 class DCSVMConfig:
     """Mirrors the reference config field for field; ``use_pallas`` is
-    ``use_kernels`` here.  ``trace`` (not ported yet) raises
-    ``NotImplementedError`` when set."""
+    ``use_kernels`` here."""
 
     kernel: Kernel = Kernel("rbf", gamma=1.0)
     C: float = 1.0
@@ -77,12 +78,12 @@ class DCSVMConfig:
                                    # block CD (core.colcache); 0 = none
     shrink_rounds: int = 3
     seed: int = 0
-    trace: Optional[int] = None    # convergence-trace ring (not ported yet)
-
-    def __post_init__(self):
-        if self.trace is not None:
-            raise NotImplementedError(
-                f"DCSVMConfig.trace={self.trace!r} is not ported yet")
+    trace: Optional[int] = None    # convergence-trace ring capacity of the
+                                   # level-0 solve: keeps its LAST ``trace``
+                                   # samples a class (obs.trace), fetched
+                                   # once at the end into level_stats[-1]
+                                   # ("trace", "trace_summary"); None or 0:
+                                   # no ring, the untraced loops
 
 
 @dataclasses.dataclass
@@ -278,10 +279,16 @@ def _solve_subset(cfg: DCSVMConfig, td: TaskDual, alpha: torch.Tensor,
 
 
 def _stack(results: List[S.SolveResult]) -> S.SolveResult:
-    return S.SolveResult(*(
-        None if getattr(results[0], f) is None
-        else torch.stack([getattr(r, f) for r in results])
-        for f in S.SolveResult._fields))
+    """Per-class results stacked along a new leading axis, field by field
+    (a trace ring leaf by leaf), as the reference's class ``vmap``."""
+    def stack(vals):
+        if vals[0] is None:
+            return None
+        if isinstance(vals[0], ConvTrace):
+            return ConvTrace(*(torch.stack(v) for v in zip(*vals)))
+        return torch.stack(vals)
+    return S.SolveResult(*(stack([getattr(r, f) for r in results])
+                           for f in S.SolveResult._fields))
 
 
 def _solve_full(cfg: DCSVMConfig, td: TaskDual, alpha: torch.Tensor,
@@ -294,9 +301,15 @@ def _solve_full(cfg: DCSVMConfig, td: TaskDual, alpha: torch.Tensor,
     ``host_spill`` takes the box family out of core even under the dense
     threshold (``gramop.solve_box_qp_spill``, the device budget split over
     the rows); ``col_cache_cap`` gives the Gram-free box engine a column
-    cache sized within ``gram_budget``."""
+    cache sized within ``gram_budget``.  ``cfg.trace`` gives each class's
+    engine a fresh ring."""
     n = td.n_dual
     cd = cfg.compute_dtype
+
+    def _tr():
+        return (trace_init(cfg.trace, device=td.Xd.device) if cfg.trace
+                else None)
+
     dedup = cfg.gram_dedup and td.n_base != n and not td.has_equality
     Xb, bidx = td.base_view() if dedup else (None, None)
     eq = [(td.A[r], td.Deq[r], td.group_ids[r]) for r in range(td.n_rows)] \
@@ -322,10 +335,11 @@ def _solve_full(cfg: DCSVMConfig, td: TaskDual, alpha: torch.Tensor,
                 a, d, gid = eq[r]
                 results.append(S.solve_eq_qp_shrink(
                     Q, td.Cvec[r], a, d, block=cfg.eq_block_size,
-                    sweeps=cfg.sweeps, gid=gid, n_groups=td.n_groups, **kw))
+                    sweeps=cfg.sweeps, gid=gid, n_groups=td.n_groups,
+                    trace=_tr(), **kw))
             else:
                 results.append(S.solve_with_shrinking(
-                    Q, td.Cvec[r], block=cfg.block, **kw))
+                    Q, td.Cvec[r], block=cfg.block, trace=_tr(), **kw))
             del Q
         return _stack(results)
     for r in range(td.n_rows):
@@ -336,14 +350,15 @@ def _solve_full(cfg: DCSVMConfig, td: TaskDual, alpha: torch.Tensor,
                 alpha0=alpha[r], tol=cfg.tol, max_iters=cfg.max_iters,
                 use_kernels=use_kernels, p=td.P[r], block=cfg.eq_block_size,
                 sweeps=cfg.sweeps, gid=gid, n_groups=td.n_groups,
-                compute_dtype=cd))
+                compute_dtype=cd, trace=_tr()))
             continue
         op = gramop.GramOperator(Xd=td.Xd, s=td.S[r], Xb=Xb, bidx=bidx,
                                  kernel=cfg.kernel, use_kernels=use_kernels,
                                  compute_dtype=cd,
                                  budget_bytes=cfg.gram_budget)
         kw = dict(alpha0=alpha[r], tol=cfg.tol, max_iters=cfg.max_iters,
-                  block=max(cfg.block, 64), sweeps=cfg.sweeps, p=td.P[r])
+                  block=max(cfg.block, 64), sweeps=cfg.sweeps, p=td.P[r],
+                  trace=_tr())
         if spill:
             # gram_budget is the DEVICE byte budget of the panels
             results.append(gramop.solve_box_qp_spill(
@@ -488,6 +503,10 @@ def _fit_algorithm1(cfg: DCSVMConfig, X: torch.Tensor, td: TaskDual,
         v = getattr(res, name)
         if v is not None:
             st[name] = int(v.sum())
+    if res.trace is not None:
+        # the one device-to-host copy of the fit's traces
+        st["trace"] = trace_fetch(res.trace)
+        st["trace_summary"] = trace_summary(st["trace"])
     stats.append(st)
     if callback is not None:
         callback(0, alpha, st)

@@ -335,7 +335,8 @@ def solve_box_qp_spill(op: GramOperator, C,
                        tol: float = 1e-3, max_iters: int = 500,
                        block: int = 64, sweeps: int = 4, p=-1.0,
                        device_budget_bytes: Optional[int] = None,
-                       max_rounds: int = 512, timing: Optional[dict] = None):
+                       max_rounds: int = 512, timing: Optional[dict] = None,
+                       trace=None, graph: Optional[bool] = None):
     """Out-of-core block CD for the box dual: the Gram is bounded by HOST
     memory.
 
@@ -360,15 +361,22 @@ def solve_box_qp_spill(op: GramOperator, C,
     ``timing`` (a dict) is filled with the rounds and the panel layout, and
     on a CUDA device with the host-to-device bytes and milliseconds of the
     panel copies and the milliseconds of them that overlapped a sub-solve
-    (CUDA events)."""
-    from repro_torch.core.solver import (SolveResult, _broadcast, _Stepper,
-                                         _use_graph, proj_grad)
+    (CUDA events).
+
+    ``trace`` (an ``obs.trace.ConvTrace``) records one sample an outer
+    round, at the host sync the round ends with anyway: pg_max, the
+    objective, the free-set size and the round's device-tier panel hits.
+    ``graph`` as in ``solver.solve_box_qp_op`` (the panel step)."""
+    from repro_torch.core.solver import (SolveResult, _broadcast, _n_free,
+                                         _Stepper, _trace_for, _use_graph,
+                                         objective, proj_grad)
+    from repro_torch.obs.trace import trace_record
 
     X = op.Xd
     n = op.n_dual
     dev = X.device
     cuda = dev.type == "cuda"
-    graph = _use_graph(None, dev)
+    graph = _use_graph(graph, dev)
     acc = torch.promote_types(X.dtype, torch.float32)
     budget = (op.budget_bytes if device_budget_bytes is None
               else int(device_budget_bytes))
@@ -466,9 +474,10 @@ def solve_box_qp_spill(op: GramOperator, C,
     ps = _PanelSolve(op, pool, alpha, g, cvec, tol, block, sweeps, inner,
                      rows_p)
     stepper = _Stepper(ps.step, dev, graph)
+    tr = _trace_for(trace, (), dev)
     it_total = 0
     pg = float(torch.amax(torch.abs(proj_grad(alpha, g, cvec))))
-    rounds = 0
+    rounds = hits_mark = 0
     while pg > tol and it_total < max_iters and rounds < max_rounds:
         for pid in range(len(starts)):
             slot = fetch(pid)
@@ -504,6 +513,11 @@ def solve_box_qp_spill(op: GramOperator, C,
         g.copy_(fresh_grad())
         pg = float(torch.amax(torch.abs(proj_grad(alpha, g, cvec))))
         rounds += 1
+        if tr is not None:
+            trace_record(tr, pg_max=pg, objective=objective(alpha, g, pvec),
+                         n_free=_n_free(alpha, cvec),
+                         cache_hits=hits - hits_mark)
+            hits_mark = hits
     if timing is not None:
         timing.update(rounds=rounds, panels=len(starts), rows_p=rows_p,
                       cap_panels=cap_panels)
@@ -524,4 +538,4 @@ def solve_box_qp_spill(op: GramOperator, C,
                        torch.tensor(pg, dtype=acc, device=dev),
                        cache_hits=i64(hits), cache_misses=i64(misses),
                        cache_evictions=i64(evictions), spills=i64(spills),
-                       spill_hits=i64(spill_hits))
+                       spill_hits=i64(spill_hits), trace=tr)

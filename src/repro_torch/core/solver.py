@@ -29,6 +29,12 @@ problems that have stopped (``torch.where``), and the host reads the mask
 only every ``SYNC_EVERY`` steps.  Each problem's ``iters`` is therefore the
 count the reference's own loop gives.  Top-B selection is a stable
 descending sort, so ties go to the lower index as in ``lax.top_k``.
+
+Every solver takes ``trace`` (an ``obs.trace.ConvTrace``, or ``None``)
+where the reference does, records one sample an (outer) iteration of a
+running problem into it on the device, inside the CUDA graphs too, and
+returns it on ``SolveResult.trace``; with ``trace=None`` it makes no ring
+tensor and runs no extra op.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import torch
 
 from repro_torch.core import colcache, gramop
 from repro_torch.core.kernels import Kernel
+from repro_torch.obs.trace import ConvTrace, trace_batch, trace_record
 
 # Steps between host reads of the running mask (the only host syncs of the
 # solver loops).  A stopped problem is frozen on the device at once, so the
@@ -55,6 +62,7 @@ class SolveResult(NamedTuple):
     cache_evictions: Optional[torch.Tensor] = None  # live rows/panels displaced
     spills: Optional[torch.Tensor] = None       # panels written to the host tier
     spill_hits: Optional[torch.Tensor] = None   # panels re-loaded from it
+    trace: Optional[ConvTrace] = None           # convergence ring (obs.trace)
 
 
 def _broadcast(v, shape, like: torch.Tensor) -> torch.Tensor:
@@ -72,6 +80,21 @@ def objective(alpha: torch.Tensor, grad: torch.Tensor, p=-1.0) -> torch.Tensor:
     pu = torch.sum(torch.as_tensor(p, dtype=alpha.dtype, device=alpha.device)
                    * alpha, dim=-1)
     return 0.5 * torch.sum(alpha * grad, dim=-1) + 0.5 * pu
+
+
+def _n_free(alpha: torch.Tensor, cvec: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Free-set size (strictly interior coordinates) a problem, for the
+    trace."""
+    free = (alpha > 0.0) & (alpha < cvec)
+    if mask is not None:
+        free &= mask
+    return torch.sum(free, dim=-1)
+
+
+def _trace_for(trace: Optional[ConvTrace], lead: tuple, device
+               ) -> Optional[ConvTrace]:
+    return None if trace is None else trace_batch(trace, lead, device)
 
 
 def proj_grad(alpha: torch.Tensor, grad: torch.Tensor, C) -> torch.Tensor:
@@ -118,10 +141,10 @@ def _batch(Q, C, alpha0, active_mask, p) -> _Batch:
                   _broadcast(p, shape, Q).reshape(b, n), mask.reshape(b, n), lead)
 
 
-def _result(bt: _Batch, alpha, g, it, pg_max) -> SolveResult:
+def _result(bt: _Batch, alpha, g, it, pg_max, tr=None) -> SolveResult:
     n = alpha.shape[-1]
     return SolveResult(alpha.reshape(bt.lead + (n,)), g.reshape(bt.lead + (n,)),
-                       it.reshape(bt.lead), pg_max.reshape(bt.lead))
+                       it.reshape(bt.lead), pg_max.reshape(bt.lead), trace=tr)
 
 
 def _masked_pg(alpha, g, cvec, mask):
@@ -130,13 +153,16 @@ def _masked_pg(alpha, g, cvec, mask):
 
 def solve_box_qp(Q: torch.Tensor, C, alpha0: Optional[torch.Tensor] = None,
                  tol: float = 1e-3, max_iters: int = 10_000,
-                 active_mask: Optional[torch.Tensor] = None, p=-1.0
-                 ) -> SolveResult:
+                 active_mask: Optional[torch.Tensor] = None, p=-1.0,
+                 trace: Optional[ConvTrace] = None) -> SolveResult:
     """Greedy coordinate descent on a dense Q of shape (..., n, n).
 
     ``active_mask`` freezes coordinates (shrinking, pad slots): masked-out
-    coordinates are never selected and count as 0 for stopping."""
+    coordinates are never selected and count as 0 for stopping.  ``trace``
+    records (pg_max, objective, n_free) of the iterate before each update,
+    as the stopping value."""
     bt = _batch(Q, C, alpha0, active_mask, p)
+    tr = _trace_for(trace, bt.lead, Q.device)
     Qb, alpha, cvec, mask = bt.Q, bt.alpha, bt.cvec, bt.mask
     b, n = alpha.shape
     rows = torch.arange(b, device=Q.device)
@@ -152,6 +178,10 @@ def solve_box_qp(Q: torch.Tensor, C, alpha0: Optional[torch.Tensor] = None,
             break
         sc = torch.abs(_masked_pg(alpha, g, cvec, mask))
         step_max, i = torch.max(sc, dim=-1)
+        if tr is not None:
+            trace_record(tr, pg_max=step_max,
+                         objective=objective(alpha, g, bt.pvec),
+                         n_free=_n_free(alpha, cvec, mask), where=running)
         i1 = i[:, None]
         ai = alpha.gather(-1, i1)[:, 0]
         # clip(a_i - g_i / Q_ii, 0, c_i), with a - q computed as a + (-1) q
@@ -167,7 +197,7 @@ def solve_box_qp(Q: torch.Tensor, C, alpha0: Optional[torch.Tensor] = None,
         pg_max = torch.where(running, step_max, pg_max)
         it += running
         running &= (pg_max > tol) & (it < max_iters)
-    return _result(bt, alpha, g, it, pg_max)
+    return _result(bt, alpha, g, it, pg_max, tr)
 
 
 def _solve_small_qp(Qbb: torch.Tensor, gb: torch.Tensor, ab: torch.Tensor,
@@ -198,11 +228,13 @@ def _solve_small_qp(Qbb: torch.Tensor, gb: torch.Tensor, ab: torch.Tensor,
 def solve_box_qp_block(Q: torch.Tensor, C, alpha0: Optional[torch.Tensor] = None,
                        tol: float = 1e-3, max_iters: int = 2_000,
                        block: int = 32, sweeps: int = 4,
-                       active_mask: Optional[torch.Tensor] = None, p=-1.0
-                       ) -> SolveResult:
+                       active_mask: Optional[torch.Tensor] = None, p=-1.0,
+                       trace: Optional[ConvTrace] = None) -> SolveResult:
     """Top-B greedy block CD on a dense Q of shape (..., n, n): each outer
-    iteration moves the B coordinates of largest |projected gradient|."""
+    iteration moves the B coordinates of largest |projected gradient|.
+    ``trace`` records a sample an outer iteration, before its update."""
     bt = _batch(Q, C, alpha0, active_mask, p)
+    tr = _trace_for(trace, bt.lead, Q.device)
     Qb, alpha, cvec, mask = bt.Q, bt.alpha, bt.cvec, bt.mask
     b, n = alpha.shape
     if block > n:
@@ -217,6 +249,10 @@ def solve_box_qp_block(Q: torch.Tensor, C, alpha0: Optional[torch.Tensor] = None
         sc = torch.abs(_masked_pg(alpha, g, cvec, mask))
         idx = _top_block(sc, block)                                  # (b, B)
         step_max = sc.gather(-1, idx[:, :1])[:, 0]
+        if tr is not None:
+            trace_record(tr, pg_max=step_max,
+                         objective=objective(alpha, g, bt.pvec),
+                         n_free=_n_free(alpha, cvec, mask), where=running)
         Qrows = Qb.gather(1, idx[:, :, None].expand(b, block, n))   # Q[idx]
         Qbb = Qrows.gather(2, idx[:, None, :].expand(b, block, block))
         ab = alpha.gather(-1, idx)
@@ -229,7 +265,7 @@ def solve_box_qp_block(Q: torch.Tensor, C, alpha0: Optional[torch.Tensor] = None
         pg_max = torch.where(running, step_max, pg_max)
         it += running.long()
         running &= (pg_max > tol) & (it < max_iters)
-    return _result(bt, alpha, g, it, pg_max)
+    return _result(bt, alpha, g, it, pg_max, tr)
 
 
 def solve_box_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
@@ -239,8 +275,8 @@ def solve_box_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
                         grad_chunks: int = 16, use_kernels: bool = False,
                         cache_cap: int = 0, p=-1.0, compute_dtype=None,
                         Xbase: Optional[torch.Tensor] = None,
-                        base_index: Optional[torch.Tensor] = None
-                        ) -> SolveResult:
+                        base_index: Optional[torch.Tensor] = None,
+                        trace: Optional[ConvTrace] = None) -> SolveResult:
     """Block greedy CD where the Q columns are recomputed from (X, y) at
     every step; ``y`` is the sign vector of Q = (y y') ∘ K.  With
     ``use_kernels`` the rank-B update is the fused ``cd_column_update``
@@ -251,13 +287,14 @@ def solve_box_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
     (``kermat``) and inserted; the hit, miss and eviction row counts come
     back on the result.  ``compute_dtype`` is the operator's precision
     policy; ``Xbase``/``base_index`` (``X == Xbase[base_index]``) select
-    the base-indexed view of ``gramop`` (SVR's mirrored rows)."""
+    the base-indexed view of ``gramop`` (SVR's mirrored rows); ``trace``
+    as in ``solve_box_qp_op``."""
     op = gramop.GramOperator(Xd=X, s=y, Xb=Xbase, bidx=base_index,
                              kernel=kernel, use_kernels=use_kernels,
                              compute_dtype=compute_dtype)
     return solve_box_qp_op(op, C, alpha0=alpha0, tol=tol, max_iters=max_iters,
                            block=block, sweeps=sweeps, grad_chunks=grad_chunks,
-                           cache_cap=cache_cap, p=p)
+                           cache_cap=cache_cap, p=p, trace=trace)
 
 
 def _cached_rows(op: "gramop.GramOperator", cache: colcache.ColumnCache,
@@ -280,13 +317,19 @@ def _cached_rows(op: "gramop.GramOperator", cache: colcache.ColumnCache,
 
 def _op_step(op: "gramop.GramOperator", alpha, g, cvec, pg_max, it, running,
              tol: float, max_iters: int, block: int, sweeps: int, acc,
-             cache: Optional[colcache.ColumnCache] = None):
+             cache: Optional[colcache.ColumnCache] = None,
+             tr: Optional[ConvTrace] = None, pvec=None):
     """One iteration of the level-0 block CD, in place on the state tensors
-    (alpha, g, pg_max, it, running, and the cache's): what the CUDA graph
-    captures and the eager loop runs."""
+    (alpha, g, pg_max, it, running, the cache's and the trace's): what the
+    CUDA graph captures and the eager loop runs.  With ``tr``, a running
+    iteration records its pg_max and the objective and free-set size before
+    its update (and, cached, the rows the cache served)."""
     sc = torch.abs(proj_grad(alpha, g, cvec))
     idx = _top_block(sc, block)
     step_max = sc.gather(0, idx[:1])[0]
+    if tr is not None:
+        obj, free = objective(alpha, g, pvec), _n_free(alpha, cvec)
+        hits0 = None if cache is None else cache.hits.clone()
     ab = alpha[idx]
     if cache is not None:
         Qrows = _cached_rows(op, cache, idx, running, acc)   # (B, n) signed
@@ -309,6 +352,10 @@ def _op_step(op: "gramop.GramOperator", alpha, g, cvec, pg_max, it, running,
                 else g + Qb @ delta)
     pg_max.copy_(torch.where(running, step_max, pg_max))
     it += running
+    if tr is not None:
+        trace_record(tr, pg_max=step_max, objective=obj, n_free=free,
+                     cache_hits=None if cache is None else cache.hits - hits0,
+                     where=running)
     running &= (pg_max > tol) & (it < max_iters)
 
 
@@ -367,7 +414,8 @@ def solve_box_qp_op(op: "gramop.GramOperator", C,
                     alpha0: Optional[torch.Tensor] = None, tol: float = 1e-3,
                     max_iters: int = 500, block: int = 64, sweeps: int = 4,
                     grad_chunks: int = 16, cache_cap: int = 0, p=-1.0,
-                    graph: Optional[bool] = None) -> SolveResult:
+                    graph: Optional[bool] = None,
+                    trace: Optional[ConvTrace] = None) -> SolveResult:
     """The engine behind ``solve_box_qp_matvec``: block greedy CD against a
     ``GramOperator`` (one problem), with a column cache of
     ``max(cache_cap, block)`` rows when ``cache_cap > 0``.
@@ -377,7 +425,9 @@ def solve_box_qp_op(op: "gramop.GramOperator", C,
     (``_Stepper``); the state lives in static tensors and the host still
     reads ``running`` every ``SYNC_EVERY`` iterations, so the results equal
     the eager loop's bit for bit.  ``graph=False`` runs the eager loop (the
-    CPU's); a failed capture raises."""
+    CPU's); a failed capture raises.  ``trace`` records a sample an
+    iteration (``_op_step``) inside the graph: its ring is made before the
+    capture and updated in place."""
     X = op.Xd
     n = op.n_dual
     if block > n:
@@ -398,30 +448,33 @@ def solve_box_qp_op(op: "gramop.GramOperator", C,
         # must hold at least one full block
         cache = colcache.init(max(cache_cap, block), op.kwidth,
                               dtype=op.storage_dtype(acc), device=X.device)
+    tr = _trace_for(trace, (), X.device)
     step = _Stepper(lambda: _op_step(op, alpha, g, cvec, pg_max, it, running,
                                      tol, max_iters, block, sweeps, acc,
-                                     cache), X.device, graph)
+                                     cache, tr, pvec), X.device, graph)
     for k in range(max_iters):
         if k % SYNC_EVERY == 0 and not bool(running):
             break
         step()
     if cache is None:
-        return SolveResult(alpha, g, it, pg_max)
+        return SolveResult(alpha, g, it, pg_max, trace=tr)
     return SolveResult(alpha, g, it, pg_max, cache.hits, cache.misses,
-                       cache_evictions=cache.evictions)
+                       cache_evictions=cache.evictions, trace=tr)
 
 
 def solve_with_shrinking(Q: torch.Tensor, C,
                          alpha0: Optional[torch.Tensor] = None,
                          tol: float = 1e-3, max_iters: int = 10_000,
                          rounds: int = 3, shrink_margin: float = 10.0,
-                         block: int = 0, p=-1.0) -> SolveResult:
+                         block: int = 0, p=-1.0,
+                         trace: Optional[ConvTrace] = None) -> SolveResult:
     """Outer shrinking rounds around the CD solver (dense Q, batchable).
 
     Each round solves on the active set to ``tol``; variables pinned at a
     bound with |g| > shrink_margin * tol leave the active set for the next
     round; the final round re-activates everything.  ``pg_max`` is
-    recomputed at the returned alpha on the full problem."""
+    recomputed at the returned alpha on the full problem.  One ``trace``
+    ring records through every round."""
     if rounds < 1:
         raise ValueError(f"shrinking needs rounds >= 1, got {rounds}")
     n = Q.shape[-1]
@@ -431,23 +484,25 @@ def solve_with_shrinking(Q: torch.Tensor, C,
     cvec = _broadcast(C, shape, Q)
     mask = torch.ones(shape, dtype=torch.bool, device=Q.device)
     total = torch.zeros(shape[:-1], dtype=torch.int64, device=Q.device)
-    res = None
+    res, tr = None, trace
     for r in range(rounds):
         m = torch.ones_like(mask) if r == rounds - 1 else mask
         if block <= 0:
             res = solve_box_qp(Q, C, alpha0=alpha, tol=tol,
-                               max_iters=max_iters, active_mask=m, p=p)
+                               max_iters=max_iters, active_mask=m, p=p,
+                               trace=tr)
         else:
             res = solve_box_qp_block(Q, C, alpha0=alpha, tol=tol,
                                      max_iters=max_iters, block=block,
-                                     active_mask=m, p=p)
+                                     active_mask=m, p=p, trace=tr)
+        tr = res.trace
         alpha, g = res.alpha, res.grad
         total = total + res.iters
         strongly_lo = (alpha <= 0.0) & (g > shrink_margin * tol)
         strongly_hi = (alpha >= cvec) & (g < -shrink_margin * tol)
         mask = ~(strongly_lo | strongly_hi)
     pg_full = kkt_residual(Q, res.alpha, cvec, p=p)
-    return SolveResult(res.alpha, res.grad, total, pg_full)
+    return SolveResult(res.alpha, res.grad, total, pg_full, trace=tr)
 
 
 # ---------------------------------------------------------------------------
@@ -734,14 +789,16 @@ def _refresh_blocks(alpha, g, viol, running, tol, max_iters, refresh_every,
 
 def _pairwise_mvp_loop(alpha, cvec, avec, mask, gid, n_groups, qdiag, qij_fn,
                        rank2_fn, full_grad, tol, max_iters, refresh_every,
-                       graph=None):
+                       graph=None, tr=None, pvec=None):
     """The pairwise maximal-violating-pair engine on a batch (b, n).
 
     As the reference: an outer loop of refresh blocks, each up to
     ``refresh_every`` rank-2 steps on the maintained gradient while the
     last step's gap exceeds ``tol``, then a from-scratch gradient and the
     stopping test on it (``_refresh_blocks``).  Returns (alpha, g, iters =
-    pair steps, pg_max = the last fresh-gradient gap)."""
+    pair steps, pg_max = the last fresh-gradient gap).  ``tr`` (a ring of
+    the batch, with the linear term ``pvec``) records each step's gap with
+    the objective and free-set size before it."""
     b, n = alpha.shape
     rows = torch.arange(b, device=alpha.device)
     safe = _safe_a(avec)
@@ -754,6 +811,8 @@ def _pairwise_mvp_loop(alpha, cvec, avec, mask, gid, n_groups, qdiag, qij_fn,
                                        ingrp)[2], min=0.0)
 
     def step(run):
+        if tr is not None:
+            obj, free = objective(alpha, g, pvec), _n_free(alpha, cvec, mask)
         i, j, viol = _mvp_select(alpha, g, cvec, avec, safe, mask, ingrp)
         ai, aj = safe[rows, i], safe[rows, j]
         curv = qdiag[rows, i] / (ai * ai) + qdiag[rows, j] / (aj * aj) \
@@ -767,6 +826,9 @@ def _pairwise_mvp_loop(alpha, cvec, avec, mask, gid, n_groups, qdiag, qij_fn,
         alpha[rows, j] = torch.where(run, new_uj, alpha[rows, j])
         g.copy_(rank2_fn(g, i, j, torch.where(run, di, 0.0),
                          torch.where(run, dj, 0.0)))
+        if tr is not None:
+            trace_record(tr, pg_max=viol, objective=obj, n_free=free,
+                         where=run)
         return viol
 
     viol = gap(alpha, g)
@@ -811,11 +873,11 @@ def _eq_batch(Q, C, a, d, alpha0, active_mask, p, gid, n_groups) -> _EqBatch:
     return _EqBatch(Qb, alpha, cvec, avec, pvec, mask, gidv, dvec, lead)
 
 
-def _eq_result(bt: _EqBatch, alpha, g, it, pg_max) -> SolveResult:
+def _eq_result(bt: _EqBatch, alpha, g, it, pg_max, tr=None) -> SolveResult:
     n = alpha.shape[-1]
     return SolveResult(alpha.reshape(bt.lead + (n,)),
                        g.reshape(bt.lead + (n,)), it.reshape(bt.lead),
-                       pg_max.reshape(bt.lead))
+                       pg_max.reshape(bt.lead), trace=tr)
 
 
 def _dense_hooks(Qb: torch.Tensor, pvec: torch.Tensor):
@@ -833,7 +895,8 @@ def _dense_hooks(Qb: torch.Tensor, pvec: torch.Tensor):
 def solve_eq_qp(Q: torch.Tensor, C, a, d, alpha0=None, tol: float = 1e-3,
                 max_iters: int = 10_000, active_mask=None, p=0.0,
                 refresh_every: int = 256, gid=None, n_groups: int = 1,
-                graph: Optional[bool] = None) -> SolveResult:
+                graph: Optional[bool] = None,
+                trace: Optional[ConvTrace] = None) -> SolveResult:
     """Pairwise maximal-violating-pair CD on a dense Q of shape (..., n, n);
     every iterate stays on each group's hyperplane.  The warm start is
     first projected feasible (``project_box_equality``); ``active_mask``
@@ -841,10 +904,12 @@ def solve_eq_qp(Q: torch.Tensor, C, a, d, alpha0=None, tol: float = 1e-3,
     n_groups) or a scalar.  Stops when the largest gap, measured on a fresh
     gradient every ``refresh_every`` pair steps, drops below ``tol``.
     ``graph`` (default: on a CUDA device) replays each pair step as a CUDA
-    graph, with the eager loop's results bit for bit."""
+    graph, with the eager loop's results bit for bit.  ``trace`` records a
+    sample a pair step (``_pairwise_mvp_loop``)."""
     bt = _eq_batch(Q, C, a, d, alpha0, active_mask, p, gid, n_groups)
     rows, q_row, full_grad = _dense_hooks(bt.Q, bt.pvec)
     Qb = bt.Q
+    tr = _trace_for(trace, bt.lead, Q.device)
 
     def rank2(g, i, j, di, dj):
         # g + di Q_i + dj Q_j, fused multiply-adds as the reference's XLA
@@ -855,10 +920,10 @@ def solve_eq_qp(Q: torch.Tensor, C, a, d, alpha0=None, tol: float = 1e-3,
     alpha, g, it, pg = _pairwise_mvp_loop(
         bt.alpha, bt.cvec, bt.avec, bt.mask, bt.gid, n_groups,
         torch.diagonal(Qb, dim1=-2, dim2=-1), lambda i, j: Qb[rows, i, j],
-        rank2, full_grad, tol, max_iters, refresh_every, graph)
+        rank2, full_grad, tol, max_iters, refresh_every, graph, tr, bt.pvec)
     alpha, g = _restore_grouped(alpha, g, q_row, bt.cvec, bt.avec, bt.dvec,
                                 bt.gid, n_groups, bt.mask)
-    return _eq_result(bt, alpha, g, it, pg)
+    return _eq_result(bt, alpha, g, it, pg, tr)
 
 
 # finite tier-2 selection score: "no violation, but a real in-group
@@ -903,7 +968,7 @@ def _solve_small_eq_qp(Qbb, gb, ub, ab, cb, gidb, n_groups: int, active,
 
 def _blocked_mvp_loop(alpha, cvec, avec, mask, gid, n_groups, block, sweeps,
                       qbb_fn, rank2b_fn, full_grad, tol, max_iters,
-                      refresh_every, graph=None):
+                      refresh_every, graph=None, tr=None, pvec=None):
     """The rank-2B blocked engine on a batch (b, n).
 
     Each outer iteration selects per group the ``block`` smallest i-slot
@@ -913,7 +978,8 @@ def _blocked_mvp_loop(alpha, cvec, avec, mask, gid, n_groups, block, sweeps,
     that cannot be filled come back invalid and are frozen in the sub-QP,
     their writes routed onto one valid slot so duplicate writes carry
     identical values.  Outer structure and masks as
-    ``_pairwise_mvp_loop``; ``iters`` counts outer iterations."""
+    ``_pairwise_mvp_loop``; ``iters`` counts outer iterations, and ``tr``
+    records a sample each (the gap before it)."""
     b, n = alpha.shape
     dev = alpha.device
     safe = _safe_a(avec)
@@ -934,6 +1000,8 @@ def _blocked_mvp_loop(alpha, cvec, avec, mask, gid, n_groups, block, sweeps,
         return torch.clamp(torch.amax(lo - hi, dim=-1), min=0.0)
 
     def step(run):
+        if tr is not None:
+            obj, free = objective(alpha, g, pvec), _n_free(alpha, cvec, mask)
         up, dn, h = sides(alpha, g)
         viol = gap(up, dn, h)
         sc_i = torch.where(up, -h, torch.where(okg, -big, -torch.inf))
@@ -960,6 +1028,9 @@ def _blocked_mvp_loop(alpha, cvec, avec, mask, gid, n_groups, block, sweeps,
         alpha.scatter_(-1, torch.where(valid, idx, idx.gather(-1, s0)),
                        torch.where(valid, new_ub, new_ub.gather(-1, s0)))
         g.copy_(rank2b_fn(g, idx, torch.where(valid, new_ub - ub, 0.0)))
+        if tr is not None:
+            trace_record(tr, pg_max=viol, objective=obj, n_free=free,
+                         where=run)
         return viol
 
     def full_gap(alpha, g):
@@ -979,14 +1050,17 @@ def solve_eq_qp_block(Q: torch.Tensor, C, a, d, alpha0=None, tol: float = 1e-3,
                       max_iters: int = 5_000, block: int = 8, sweeps: int = 4,
                       active_mask=None, p=0.0, refresh_every: int = 32,
                       gid=None, n_groups: int = 1,
-                      graph: Optional[bool] = None) -> SolveResult:
+                      graph: Optional[bool] = None,
+                      trace: Optional[ConvTrace] = None) -> SolveResult:
     """Rank-2B blocked pairwise CD on a dense Q (..., n, n): each outer
     iteration takes the ``block`` maximal-violating pairs per group, solves
     the coupled 2B x 2B sub-QP by grouped pair steps and applies the rank-2B
     gradient update ``g += Q[:, idx] @ delta``; ``graph`` as in
-    ``solve_eq_qp`` (one graph a whole blocked step)."""
+    ``solve_eq_qp`` (one graph a whole blocked step); ``trace`` records a
+    sample an outer iteration."""
     bt = _eq_batch(Q, C, a, d, alpha0, active_mask, p, gid, n_groups)
     rows, q_row, full_grad = _dense_hooks(bt.Q, bt.pvec)
+    tr = _trace_for(trace, bt.lead, Q.device)
     Qb = bt.Q
     n = Qb.shape[-1]
     B = max(1, min(block, n // (2 * n_groups)))
@@ -1002,22 +1076,25 @@ def solve_eq_qp_block(Q: torch.Tensor, C, a, d, alpha0=None, tol: float = 1e-3,
 
     alpha, g, it, pg = _blocked_mvp_loop(
         bt.alpha, bt.cvec, bt.avec, bt.mask, bt.gid, n_groups, B, sweeps,
-        qbb, rank2b, full_grad, tol, max_iters, refresh_every, graph)
+        qbb, rank2b, full_grad, tol, max_iters, refresh_every, graph, tr,
+        bt.pvec)
     alpha, g = _restore_grouped(alpha, g, q_row, bt.cvec, bt.avec, bt.dvec,
                                 bt.gid, n_groups, bt.mask)
-    return _eq_result(bt, alpha, g, it, pg)
+    return _eq_result(bt, alpha, g, it, pg, tr)
 
 
 def solve_eq_qp_shrink(Q: torch.Tensor, C, a, d, alpha0=None,
                        tol: float = 1e-3, max_iters: int = 10_000,
                        rounds: int = 3, shrink_margin: float = 10.0, p=0.0,
                        block: int = 0, sweeps: int = 4, gid=None,
-                       n_groups: int = 1) -> SolveResult:
+                       n_groups: int = 1,
+                       trace: Optional[ConvTrace] = None) -> SolveResult:
     """Outer shrinking rounds around the pairwise (``block <= 1``) or
     blocked engine: a coordinate at a bound whose h_i lies beyond its
     group's rho estimate by more than ``shrink_margin * tol`` is frozen for
     the next round (keeping its a'u share); the final round re-activates
-    everything, and ``pg_max`` is the full problem's gap."""
+    everything, and ``pg_max`` is the full problem's gap.  One ``trace``
+    ring records through every round."""
     if rounds < 1:
         raise ValueError(f"shrinking needs rounds >= 1, got {rounds}")
     n = Q.shape[-1]
@@ -1029,13 +1106,14 @@ def solve_eq_qp_shrink(Q: torch.Tensor, C, a, d, alpha0=None,
              if alpha0 is None else _broadcast(alpha0, shape, Q))
     mask = torch.ones(shape, dtype=torch.bool, device=Q.device)
     total = torch.zeros(shape[:-1], dtype=torch.int64, device=Q.device)
-    res = None
+    res, tr = None, trace
     for r in range(rounds):
         m = torch.ones_like(mask) if r == rounds - 1 else mask
         kw = dict(alpha0=alpha, tol=tol, max_iters=max_iters, active_mask=m,
-                  p=p, gid=gidv, n_groups=n_groups)
+                  p=p, gid=gidv, n_groups=n_groups, trace=tr)
         res = (solve_eq_qp_block(Q, C, a, d, block=block, sweeps=sweeps, **kw)
                if block > 1 else solve_eq_qp(Q, C, a, d, **kw))
+        tr = res.trace
         alpha, g = res.alpha, res.grad
         total = total + res.iters
         rho = equality_rho_grouped(alpha, g, cvec, avec, gidv,
@@ -1049,7 +1127,7 @@ def solve_eq_qp_shrink(Q: torch.Tensor, C, a, d, alpha0=None,
         mask = ~(lock_lo | lock_hi)
     pg_full = kkt_residual_eq(Q, res.alpha, cvec, avec, p=p, gid=gidv,
                               n_groups=n_groups)
-    return SolveResult(res.alpha, res.grad, total, pg_full)
+    return SolveResult(res.alpha, res.grad, total, pg_full, trace=tr)
 
 
 def solve_eq_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
@@ -1058,8 +1136,8 @@ def solve_eq_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
                        use_kernels: bool = False, p=0.0,
                        refresh_every: int = 512, block: int = 1,
                        sweeps: int = 4, gid=None, n_groups: int = 1,
-                       compute_dtype=None, graph: Optional[bool] = None
-                       ) -> SolveResult:
+                       compute_dtype=None, graph: Optional[bool] = None,
+                       trace: Optional[ConvTrace] = None) -> SolveResult:
     """Pairwise (``block <= 1``) or rank-2B blocked maximal-violating-pair
     CD with the kernel columns computed on the fly: Q = (y y') ∘ K(X, X)
     is never formed (one problem; ``y`` is the task's sign vector).  With
@@ -1068,7 +1146,7 @@ def solve_eq_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
     and every from-scratch gradient the streaming ``kernel_matvec``.
     ``refresh_every`` counts pair steps and is divided by 2B on the blocked
     path.  ``compute_dtype`` is the operator's precision policy.  ``graph``
-    as in ``solve_eq_qp``."""
+    and ``trace`` as in ``solve_eq_qp``."""
     n = X.shape[0]
     shape = (1, n)
     cvec, avec, pvec = (_broadcast(v, (n,), X)[None] for v in (C, a, p))
@@ -1082,6 +1160,7 @@ def solve_eq_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
                              use_kernels=use_kernels,
                              compute_dtype=compute_dtype).prepare()
     acc = torch.promote_types(X.dtype, torch.float32)
+    tr = _trace_for(trace, (), X.device)
 
     def full_grad(al):
         return (op.matvec(al[0], num_chunks=grad_chunks)
@@ -1095,7 +1174,7 @@ def solve_eq_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
         alpha, g, it, pg = _blocked_mvp_loop(
             alpha, cvec, avec, mask, gidv, n_groups, B, sweeps,
             lambda idx: op.qbb(idx[0]).to(acc)[None], rank2b, full_grad,
-            tol, max_iters, max(1, refresh_every // (2 * B)), graph)
+            tol, max_iters, max(1, refresh_every // (2 * B)), graph, tr, pvec)
     else:
         def qij(i, j):
             return op.qbb(torch.cat([i, j]))[0, 1].to(acc)[None]
@@ -1106,7 +1185,8 @@ def solve_eq_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
 
         alpha, g, it, pg = _pairwise_mvp_loop(
             alpha, cvec, avec, mask, gidv, n_groups, op.qdiag().to(acc)[None],
-            qij, rank2, full_grad, tol, max_iters, refresh_every, graph)
+            qij, rank2, full_grad, tol, max_iters, refresh_every, graph, tr,
+            pvec)
 
     def q_row(k):
         # one plain column under the operator's kernel and policy,
@@ -1116,4 +1196,4 @@ def solve_eq_qp_matvec(X: torch.Tensor, y: torch.Tensor, kernel: Kernel, C,
 
     alpha, g = _restore_grouped(alpha, g, q_row, cvec, avec, dvec, gidv,
                                 n_groups, mask)
-    return SolveResult(alpha[0], g[0], it[0], pg[0])
+    return SolveResult(alpha[0], g[0], it[0], pg[0], trace=tr)

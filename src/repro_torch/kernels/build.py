@@ -7,9 +7,16 @@ shared library with a plain C interface, and loaded with ``ctypes``:
          -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so <name>.cu
 
 The build goes into ``build/repro_torch_kernels/`` at the repository root
-on first use; the file name carries a hash of the sources, so an edit
-rebuilds and an unchanged tree reuses the library.  All sources compile in
-parallel.  Nothing here runs at import time.
+on first use; the file name carries a hash of the sources and flags, so an
+edit rebuilds and an unchanged tree reuses the library.  All sources
+compile in parallel.  Nothing here runs at import time.
+
+``VARIANTS`` are further libraries of a source under extra flags, in the
+same directory, built only when asked for (``build_all(variants=True)``,
+or the first call of one of their entry points): ``bf16_gram_check`` is
+``bf16_gram.cu`` with its ring check (``-DBG_RING_CHECK``).
+``ring_check()`` routes the bf16 entry points to it for a stress check and
+reads its counters.
 """
 from __future__ import annotations
 
@@ -19,8 +26,9 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterator, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -28,6 +36,8 @@ SOURCES = ("kermat", "kermatvec", "cd_update", "kmeans_assign",
            "flash_attention", "bf16_gram")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+# library -> (its source, the flags it adds to NVCC_FLAGS)
+VARIANTS = {"bf16_gram_check": ("bf16_gram", ["-DBG_RING_CHECK"])}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,16 +72,19 @@ SIGNATURES = {
     "flash_attention": ("rt_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
                          _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _P]),
+    "bg_ring_check": ("rt_bg_ring_check", [_P, _I, _I]),
 }
 
 # entry points that live in another entry's source
 _SOURCE_OF = {"kmeans_assign_scratch": "kmeans_assign",
               "bf16_pack": "bf16_gram", "kermat_bf16": "bf16_gram",
               "kernel_matvec_bf16": "bf16_gram",
-              "cd_update_bf16": "bf16_gram"}
+              "cd_update_bf16": "bf16_gram", "bg_ring_check": "bf16_gram_check"}
 
 _lock = threading.Lock()
-_loaded: Dict[str, object] = {}
+_loaded: Dict[tuple, object] = {}
+# library -> the library its entry points are taken from (ring_check)
+_route: Dict[str, str] = {}
 
 
 def _cuda_tool(name: str) -> str:
@@ -110,9 +123,15 @@ def sass_counts(name: str, opcodes=("HGMMA", "UTMALDG")
     return counts
 
 
+def _source_flags(name: str):
+    src, extra = VARIANTS.get(name, (name, []))
+    return CSRC / f"{src}.cu", NVCC_FLAGS + extra
+
+
 def _digest(name: str) -> str:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for p in sorted([CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]):
+    src, flags = _source_flags(name)
+    h = hashlib.sha1(" ".join(flags).encode())
+    for p in sorted([src, *CSRC.glob("*.cuh")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:12]
@@ -122,21 +141,24 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_digest(name)}.so"
 
 
-def build_all(verbose: bool = False) -> Dict[str, Path]:
-    """Compile every missing library, one ``nvcc`` per source, all started
-    together.  Raises with the compiler's output if one fails."""
+def build_all(verbose: bool = False,
+              variants: bool = False) -> Dict[str, Path]:
+    """Compile every missing library (and with ``variants`` the
+    ``VARIANTS``), one ``nvcc`` per library, all started together.  Raises
+    with the compiler's output if one fails."""
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: List = []
     out: Dict[str, Path] = {}
-    for name in SOURCES:
+    for name in (*SOURCES, *(VARIANTS if variants else ())):
         lib = library_path(name)
         out[name] = lib
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-        cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        src, flags = _source_flags(name)
+        flags = flags + (["-Xptxas", "-v"] if verbose else [])
+        cmd = [nvcc, *flags, "-o", str(tmp), str(src)]
         procs.append((name, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []
@@ -157,12 +179,64 @@ def kernel_fn(name: str):
     """The ctypes entry point ``name`` of ``csrc/<name>.cu`` (or of the
     source ``_SOURCE_OF`` names), building it if needed."""
     with _lock:
-        fn = _loaded.get(name)
+        source = _SOURCE_OF.get(name, name)
+        source = _route.get(source, source)
+        fn = _loaded.get((source, name))
         if fn is None:
-            lib = build_all()[_SOURCE_OF.get(name, name)]
+            lib = build_all(variants=source in VARIANTS)[source]
             symbol, argtypes = SIGNATURES[name]
             fn = getattr(ctypes.CDLL(str(lib)), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _loaded[name] = fn
+            _loaded[source, name] = fn
         return fn
+
+
+class RingCheck:
+    """The ring check build's counters (``rt_bg_ring_check``): ``read()``
+    syncs the device and returns {faults, first (check, block, warp,
+    slot), expected, found, checked (exit checks run), and the last
+    kernel_matvec_bf16 launch's grid, stages, xring and blocks_per_sm};
+    ``reset()`` clears the counters; ``stages`` forces the matvec ring's
+    entries (>= 2; 0 as sized) from the next launch on."""
+
+    def __init__(self, stages: int = 0):
+        self.stages = stages
+
+    def _call(self, reset: bool) -> Dict[str, int]:
+        words = (ctypes.c_ulonglong * 8)()
+        err = kernel_fn("bg_ring_check")(ctypes.addressof(words), int(reset),
+                                         int(self.stages))
+        if err:
+            raise RuntimeError(f"rt_bg_ring_check failed: cudaError {err}")
+        where, what = words[1], words[2]
+        return dict(faults=words[0], check=where >> 56,
+                    block=(where >> 24) & 0xFFFFFFFF,
+                    warp=(where >> 8) & 0xFFFF, slot=where & 0xFF,
+                    expected=what >> 32, found=what & 0xFFFFFFFF,
+                    checked=words[3], grid=words[4], stages=words[5],
+                    xring=words[6], blocks_per_sm=words[7])
+
+    def read(self) -> Dict[str, int]:
+        return self._call(False)
+
+    def reset(self) -> None:
+        self._call(True)
+
+
+@contextmanager
+def ring_check(stages: int = 0) -> Iterator[RingCheck]:
+    """Inside, the bf16 entry points (``bf16_pack``, ``kermat_bf16``,
+    ``kernel_matvec_bf16``, ``cd_update_bf16``) launch the
+    ``bf16_gram_check`` build; yields its counters, reset on entry."""
+    check = RingCheck(stages)
+    with _lock:
+        _route["bf16_gram"] = "bf16_gram_check"
+    try:
+        check.reset()
+        yield check
+    finally:
+        with _lock:
+            _route.pop("bf16_gram", None)
+        check.stages = 0
+        check.reset()

@@ -130,6 +130,41 @@
 #define BG_CD_SLICE 128       // widest slice of cd_update's slice form
 #define BG_SMEM_MAX 232448    // shared memory a block may use (227 KB)
 
+// The ring check (-DBG_RING_CHECK: kernels/build.py's bf16_gram_check
+// library, a debug build beside the one the port runs).  The matvec's Z
+// ring, the one ring whose entries warps share, counts each slot's fills
+// in shared memory and tags each entry with its place in the walk; a warp
+// checks the tag when the entry is full and again when it releases it,
+// after its last read (a refill that overwrote the entry while the warp
+// read it has changed the tag), and the counts at exit.  A fault is
+// counted here instead of trapping: the host reads the words with
+// rt_bg_ring_check.  Words: faults; the first one's (check << 56 | block
+// << 24 | warp << 8 | slot); its (expected << 32 | found); the exit checks
+// that ran.  Checks: 1 the entry's tag when full, 2 the slot counts, 3 the
+// entries a warp read, 4 the entry's tag at its release.  (kermat's and
+// cd_update's cp.async rings are each a block's or a warp's own, ordered
+// by its barriers; only the repeats of kernels/ring_stress.py test them.)
+#ifdef BG_RING_CHECK
+#define BG_CK(...) __VA_ARGS__
+__device__ unsigned long long bg_ring_state[4];
+
+__device__ __noinline__ void bg_ring_fault(unsigned check, unsigned slot,
+                                           unsigned want, unsigned got) {
+    if (atomicAdd(&bg_ring_state[0], 1ull) == 0ull) {
+        bg_ring_state[1] = ((unsigned long long)check << 56)
+                           | ((unsigned long long)blockIdx.x << 24)
+                           | ((unsigned long long)(threadIdx.x / 32) << 8)
+                           | slot;
+        bg_ring_state[2] = ((unsigned long long)want << 32) | got;
+    }
+}
+__device__ __forceinline__ void bg_ring_checked() {
+    atomicAdd(&bg_ring_state[3], 1ull);
+}
+#else
+#define BG_CK(...)
+#endif
+
 // Row pitch (bytes) of a staged slice sw columns wide, 64 bytes past a
 // multiple of 128 so that the 16-byte fragment reads of a quarter warp
 // (rows g, g + 1) fall on distinct banks without a swizzle.
@@ -825,6 +860,12 @@ bg_matvec_kernel(const __grid_constant__ CUtensorMap tz,
     const bool xstream = WIDE && xring;
     uint64_t* full = reinterpret_cast<uint64_t*>(bg_mv_sm);
     unsigned* freed = reinterpret_cast<unsigned*>(full + BG_MV_SMAX);
+    // in the header's spare bytes: each slot's fills and its entry's place
+    // in the walk; the entries this warp has read
+    BG_CK(static_assert(BG_MV_SMAX * 20 <= BG_MV_HDR, "header");
+          unsigned* fills = freed + BG_MV_SMAX;
+          unsigned* tags = fills + BG_MV_SMAX;
+          unsigned seen = 0;)
     unsigned char* sx = bg_mv_sm + BG_MV_HDR;
     unsigned char* ring =
         sx + (!WIDE ? 1 : xstream ? BG_MV_WS : nsl) * W * BG_MV_WR * ld;
@@ -849,6 +890,10 @@ bg_matvec_kernel(const __grid_constant__ CUtensorMap tz,
         const long long b = u / rt;
         unsigned char* dst = ring + slot * entry;
         const int z0 = j * ZR, s0 = s * sw;
+        BG_CK(if (lane == 0) {
+                  atomicAdd(&fills[slot], 1u);
+                  tags[slot] = (unsigned)((i * tiles + j) * nsl + s);
+              })
         // the rows: one TMA box of ld / 2 columns (past dp and m zeros),
         // so the rows land at the padded pitch ld
         if (lane == 0) {
@@ -898,10 +943,20 @@ bg_matvec_kernel(const __grid_constant__ CUtensorMap tz,
             phase ^= 1u;
         }
     };
+    // the entry in `slot` is the walk's entry `seen` (its tag, read anew)
+    BG_CK(auto tag_check = [&](unsigned check) {
+              const unsigned got =
+                  reinterpret_cast<volatile unsigned*>(tags)[slot];
+              if (lane == 0 && got != seen)
+                  bg_ring_fault(check, slot, seen, got);
+          };)
     // Done with the entry in `slot`: the last warp to release it issues
     // the cursor's entry into it (and, streaming X, each warp its slice).
     auto release = [&]() {
         __syncwarp();
+        // still the entry the warp read: a refill begun while a warp
+        // reads the entry has written its tag by now
+        BG_CK(tag_check(4);)
         unsigned last = 0;
         if (lane == 0)
             last = (bg_release_count(&freed[slot]) & (W - 1)) == W - 1;
@@ -914,12 +969,14 @@ bg_matvec_kernel(const __grid_constant__ CUtensorMap tz,
         if (xstream) bg_commit();
         advance();
         next();
+        BG_CK(++seen;)
     };
 
     if (tid == 0) {
         for (int k = 0; k < S; ++k) {
             mbar_init(&full[k], 33);
             freed[k] = 0;
+            BG_CK(fills[k] = 0; tags[k] = ~0u;)
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
@@ -972,6 +1029,7 @@ bg_matvec_kernel(const __grid_constant__ CUtensorMap tz,
             const unsigned char* A = xslot(0);
             for (int j = 0; j < tiles; ++j) {
                 mbar_wait(&full[slot], phase);
+                BG_CK(tag_check(1);)
                 if (live)
 #pragma unroll
                     for (int hf = 0; hf < 2; ++hf) {
@@ -992,6 +1050,7 @@ bg_matvec_kernel(const __grid_constant__ CUtensorMap tz,
                         __syncwarp();
                     }
                     mbar_wait(&full[slot], phase);
+                    BG_CK(tag_check(1);)
                     if (live) {
                         products(acc, xslot(xstream ? slot : s),
                                  bg_mv_w(dp - s * sw), 0);
@@ -1022,6 +1081,20 @@ bg_matvec_kernel(const __grid_constant__ CUtensorMap tz,
         }
     }
     bg_wait_all();
+    BG_CK({
+        const unsigned total = tiles > 0 ? (unsigned)(U * tiles * nsl) : 0u;
+        if (lane == 0 && seen != total) bg_ring_fault(3, 0, total, seen);
+        __syncthreads();
+        if (tid == 0) {
+            for (int k = 0; k < S; ++k) {
+                const unsigned e =
+                    total > (unsigned)k ? (total - 1 - k) / S + 1 : 0u;
+                if (fills[k] != e) bg_ring_fault(2, k, e, fills[k]);
+                if (freed[k] != W * e) bg_ring_fault(2, k, W * e, freed[k]);
+            }
+            bg_ring_checked();
+        }
+    })
 }
 
 // ------------------------------------------------------------- cd_update --
@@ -1244,6 +1317,32 @@ bg_cd_kernel(const __nv_bfloat16* __restrict__ X,
 
 static bool bg_dp_ok(int dp) { return dp >= 8 && dp % 8 == 0; }
 
+#ifdef BG_RING_CHECK
+// The matvec's ring entries forced down to this many (>= 2; 0: as sized;
+// the X-streamed form keeps its BG_MV_WS), and the last matvec launch's
+// grid, ring entries, X ring flag and blocks an SM.
+static int bg_ring_stages = 0;
+static long long bg_ring_geom[4];
+
+// After a device sync: the check's words into out[0..3], the last matvec
+// launch's geometry into out[4..7]; reset clears the words; stages forces
+// the matvec ring's entries from the next launch on.
+extern "C" int rt_bg_ring_check(unsigned long long* out, int reset,
+                                int stages) {
+    bg_ring_stages = stages;
+    int err = (int)cudaDeviceSynchronize();
+    if (!err)
+        err = (int)cudaMemcpyFromSymbol(out, bg_ring_state,
+                                        sizeof(bg_ring_state));
+    for (int k = 0; k < 4; ++k) out[4 + k] = (unsigned long long)bg_ring_geom[k];
+    if (!err && reset) {
+        const unsigned long long zero[4] = {0, 0, 0, 0};
+        err = (int)cudaMemcpyToSymbol(bg_ring_state, zero, sizeof(zero));
+    }
+    return err;
+}
+#endif
+
 static int bg_sms = 0;
 
 // Once a kernel instantiation (the caller keeps the flag): allow it the
@@ -1392,6 +1491,8 @@ static int bg_mv_launch(const void* X, const float* xn, const void* Z,
         xring = 1;
         S = BG_MV_WS;
     }
+    BG_CK(if (bg_ring_stages >= 2 && !xring && S > bg_ring_stages)
+              S = bg_ring_stages;)
     if (S < 2 || bg_mv_smem(dp, wide, xring, S) > BG_SMEM_MAX)
         return BG_REFUSED;
     // Z's rows through TMA: a (dp, m, batch) bf16 map, a box of ld / 2
@@ -1426,6 +1527,8 @@ static int bg_mv_launch(const void* X, const float* xn, const void* Z,
     if (units > 2147483647LL) return BG_REFUSED;
     const long long slots = (long long)occ * bg_sms;
     const int grid = (int)(units < slots ? units : slots);
+    BG_CK(bg_ring_geom[0] = grid; bg_ring_geom[1] = S;
+          bg_ring_geom[2] = xring; bg_ring_geom[3] = occ;)
     kernel<<<grid, threads, smem, stream>>>(
         tz, (const __nv_bfloat16*)X, xn, zn, v, out, batch, n, m, dp, S,
         xring, gamma, degree, coef0);

@@ -12,6 +12,8 @@
         --nu 0.3 [--nu-bias] [--eq-block 64]
     PYTHONPATH=src python -m repro_torch.launch.train_svm --n 20000 \\
         --compute-dtype bfloat16 --host-spill --gram-budget 268435456
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --trace fit.json \\
+        --trace-cap 4096 --stats-json stats.json
 
 Tasks: ``svc`` (hinge C-SVC), ``weighted-svc`` (box ``c_i = C * w_{y_i}``,
 ``--class-weight POS[,NEG]``), ``svr`` (epsilon-insensitive regression,
@@ -25,14 +27,22 @@ product operands to bf16 (f32 accumulation); ``--host-spill`` solves level
 ``--gram-budget`` bytes).  Prints one line per level (with level 0's
 cache and spill counters when there are any) and the reference CLI's
 summary line: accuracy (and per-class recall for weighted-svc), MSE and
-MAE for svr, outlier recall, precision and F1 for one-class.
+MAE for svr, outlier recall, precision and F1 for one-class.  ``--trace
+PATH`` writes the fit's span tree as Chrome trace-event JSON (Perfetto,
+chrome://tracing) and prints its table; ``--trace-cap N`` records the
+last N iterations of the level-0 solve into a device ring
+(``DCSVMConfig.trace``); ``--stats-json PATH`` writes every level's stats,
+the convergence trace among them.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.core import (DCSVMConfig, EpsilonSVR, Kernel, NuSVC,
                               OneClassSVM, WeightedCSVC, accuracy, f1, fit,
@@ -43,6 +53,7 @@ from repro_torch.data import (checkerboard, covtype_like, friedman1,
                               gaussian_with_outliers, sinc1d,
                               stratified_split, train_test_split,
                               webspam_like)
+from repro_torch.obs.spans import SpanTracer
 
 DATASETS = {
     "covtype_like": covtype_like,
@@ -60,6 +71,17 @@ REGRESSION_DATASETS = {"sinc1d", "friedman1"}
 COUNTERS = ("iters", "cache_hits", "cache_misses", "cache_hit_rate",
             "cache_evictions", "spills", "spill_hits")
 ONECLASS_DATASETS = {"outliers"}
+
+
+def _json_default(v):
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    if isinstance(v, (np.ndarray, torch.Tensor)):
+        return np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v
+                          ).tolist()
+    raise TypeError(f"not JSON-serializable: {type(v)!r}")
 
 
 def parse_class_weight(spec: str):
@@ -115,6 +137,19 @@ def main(argv=None) -> None:
                          "spill panels (0 = default)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome trace-event JSON of the fit's span "
+                         "tree (divide/conquer phases) to this path and "
+                         "print the aggregated span table; load in Perfetto "
+                         "or chrome://tracing")
+    ap.add_argument("--trace-cap", type=int, default=0,
+                    help="device-resident convergence-trace ring capacity "
+                         "for the level-0 solve (keeps the LAST N "
+                         "per-iteration samples; 0 = tracing off, the "
+                         "untraced solver loops)")
+    ap.add_argument("--stats-json", default="",
+                    help="dump per-level training stats (times, SV counts, "
+                         "cache counters, convergence traces) as JSON")
     args = ap.parse_args(argv)
 
     is_reg = args.dataset in REGRESSION_DATASETS
@@ -147,6 +182,8 @@ def main(argv=None) -> None:
     extra = {"gram_budget": args.gram_budget} if args.gram_budget > 0 else {}
     if args.compute_dtype != "float32":     # float32 = the default paths
         extra["compute_dtype"] = args.compute_dtype
+    if args.trace_cap > 0:
+        extra["trace"] = args.trace_cap
     cfg = DCSVMConfig(kernel=Kernel(args.kernel, gamma=args.gamma), C=args.C,
                       k=args.k, levels=args.levels, m=args.m, tol=args.tol,
                       block=args.block, eq_block_size=args.eq_block,
@@ -159,10 +196,27 @@ def main(argv=None) -> None:
               f"n_sv={st['n_sv']} cluster_t={st.get('cluster_time', 0):.1f}s "
               f"train_t={st['train_time']:.1f}s{counters}", flush=True)
 
+    tracer = None
+    span_ctx = contextlib.nullcontext()
+    if args.trace:
+        tracer = SpanTracer()
+        span_ctx = tracer.activate()
     t0 = time.perf_counter()
-    model = fit(cfg, Xtr, None if args.task == "one-class" else ytr,
-                callback=cb, task=task, device=args.device)
+    with span_ctx:
+        model = fit(cfg, Xtr, None if args.task == "one-class" else ytr,
+                    callback=cb, task=task, device=args.device)
     t_train = time.perf_counter() - t0
+    if tracer is not None:
+        tracer.write_chrome_trace(args.trace)
+        print(f"chrome trace -> {args.trace}", flush=True)
+        print(tracer.summary(), flush=True)
+    if args.stats_json:
+        payload = {"task": args.task, "dataset": args.dataset,
+                   "n": int(Xtr.shape[0]), "train_time": t_train,
+                   "levels": model.level_stats}
+        with open(args.stats_json, "w") as f:
+            json.dump(payload, f, indent=1, default=_json_default)
+        print(f"stats -> {args.stats_json}", flush=True)
     if model.is_early:
         pred = predict_early(model, Xte).cpu()
         mode = f"early prediction (level {args.early})"

@@ -24,7 +24,7 @@ from repro_torch.core import gramop
 from repro_torch.core import solver as S
 from repro_torch.core import tasks as T
 from repro_torch.core.kernels import Kernel
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, ops, ref, ring_stress
 
 KINDS = [dict(kind="rbf", gamma=4.0),
          dict(kind="poly", gamma=0.5, degree=3, coef0=1.0),
@@ -719,6 +719,97 @@ def test_cuda_graphed_equality_engines_match_eager(cuda_device, engine):
     assert int(out[True].iters.max()) > 0
 
 
+def _same_ring(a, b):
+    """Two rings equal bit for bit (NaN where nothing was recorded)."""
+    return (torch.equal(a.buf.view(torch.int32), b.buf.view(torch.int32))
+            and torch.equal(a.count, b.count))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["op", "op-cached-bf16", "eq-pairwise",
+                                    "eq-blocked", "eq-dense", "spill"])
+def test_cuda_graphed_traced_matches_eager(cuda_device, engine):
+    """The traced level-0 engines, their recording inside the CUDA graphs:
+    the graphed traced loop gives the eager traced loop's alpha, grad,
+    iters, pg_max, counters and ring bit for bit, with the same launches;
+    the graphed untraced loop gives the traced one's results with the same
+    kernel launches (the ring adds none).  Level 0's block CD (n = 8192),
+    its cached bf16 branch (512 rows), the Gram-free pairwise and blocked
+    equality steps, the dense equality step on a masked batch, and the
+    spill tier's panel step."""
+    from repro_torch.obs.trace import trace_fetch, trace_init
+
+    rng = np.random.default_rng(31)
+    kern = Kernel("rbf", gamma=1.0)
+    n = 8192
+    X = _rows(rng, (n, 54), cuda_device)
+    y = torch.sign(torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+                                device=cuda_device))
+    if engine == "eq-dense":
+        Xb = _rows(rng, (3, 512, 20), cuda_device)
+        yb = torch.sign(torch.tensor(rng.standard_normal((3, 512)),
+                                     dtype=torch.float32, device=cuda_device))
+        Q = ops.kernel_matrix(Xb, Xb, kern) * yb[:, :, None] * yb[:, None, :]
+        mask = torch.ones((3, 512), dtype=torch.bool, device=cuda_device)
+        mask[1, 400:] = False
+
+    def run(graph, trace):
+        if engine.startswith("op"):
+            cd = BF if engine.endswith("bf16") else None
+            op = gramop.GramOperator(Xd=X, s=y, kernel=kern, use_kernels=True,
+                                     compute_dtype=cd)
+            return S.solve_box_qp_op(op, 8.0, tol=1e-3, max_iters=150,
+                                     cache_cap=512 if cd else 0, graph=graph,
+                                     trace=trace)
+        if engine == "eq-dense":
+            return S.solve_eq_qp(Q, mask.float(), mask.float(),
+                                 torch.full((3, 2), 25.6, device=cuda_device),
+                                 tol=1e-3, max_iters=2000, active_mask=mask,
+                                 gid=(yb < 0).long(), n_groups=2, graph=graph,
+                                 trace=trace)
+        if engine.startswith("eq"):
+            blocked = engine == "eq-blocked"
+            return S.solve_eq_qp_matvec(
+                X, y, kern, 1.0, 1.0, torch.full((2,), 0.05 * n,
+                                                 device=cuda_device),
+                tol=1e-3, max_iters=30 if blocked else 600, use_kernels=True,
+                block=16 if blocked else 1, gid=(y < 0).long(), n_groups=2,
+                graph=graph, trace=trace)
+        op = gramop.GramOperator(Xd=X[:4096], s=y[:4096], kernel=kern,
+                                 use_kernels=True)
+        return gramop.solve_box_qp_spill(
+            op, 1.0, tol=1e-3, max_iters=3000, block=64,
+            device_budget_bytes=1024 * 4096 * 4, graph=graph, trace=trace)
+
+    out, launches = {}, {}
+    for key in ((False, True), (True, True), (True, False)):
+        graph, traced = key
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        out[key] = run(graph, trace_init(256, device=cuda_device)
+                       if traced else None)
+        torch.cuda.synchronize()
+        launches[key] = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    eager, graphed, plain = out[False, True], out[True, True], out[True, False]
+    for field in S.SolveResult._fields:
+        a, b = getattr(eager, field), getattr(graphed, field)
+        if field == "trace":
+            assert _same_ring(a, b)
+        else:
+            assert (a is None and b is None) or torch.equal(a, b), field
+    for field in ("alpha", "grad", "iters", "pg_max"):
+        assert torch.equal(getattr(plain, field), getattr(graphed, field))
+    assert plain.trace is None
+    assert launches[False, True] == launches[True, True] == launches[
+        True, False]
+    fetched = trace_fetch(graphed.trace)
+    rings = fetched if isinstance(fetched, list) else [fetched]
+    assert all(f["samples"] > 0 for f in rings if "pg_max" in f)
+    if engine != "spill":
+        iters = graphed.iters.reshape(-1).tolist()
+        assert [f["samples"] + f["dropped"] for f in rings] == iters
+
+
 # --- the bf16 operand forms (compute_dtype="bfloat16") ---------------------
 #
 # Held to their plain versions on the same inputs at the f32 forms'
@@ -915,6 +1006,31 @@ def test_cuda_bf16_forms_repeat_bit_identical(cuda_device, d):
             first = fn(*args, kern, compute_dtype=BF)
             for _ in range(100):
                 assert torch.equal(fn(*args, kern, compute_dtype=BF), first)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_ring_stress(cuda_device):
+    """ROADMAP C4: every bf16 form at its ring's edges (``ring_stress.
+    FORMS``: the matvec with two blocks an SM and one, 12 to 4 ring
+    entries, wide, X streamed, batched; kermat's and cd_update's rings;
+    d = 1), 4,000 launches each held bit for bit to the first, then each
+    matvec form 300 times under the ring check build (``build.ring_check``:
+    the Z ring's entry tags checked when full and at release, its slot
+    counts at exit; also with the ring forced to 2 entries): no mismatch,
+    no fault, every exit check run."""
+    res = ring_stress.stress(4000, 300, device=cuda_device)
+    assert not ring_stress.failures(res), ring_stress.failures(res)
+    geo = {name: (r["check"]["grid"], r["check"]["stages"],
+                  r["check"]["xring"], r["check"]["blocks_per_sm"])
+           for name, r in res.items() if r["kernel"] == "kernel_matvec_bf16"}
+    # the edges the forms are named for: blocks an SM, entries, X streamed
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    want = {1: (2, 12, 0), 54: (2, 5, 0), 200: (1, 4, 0), 300: (1, 5, 0),
+            600: (1, 4, 1)}
+    for name, (grid, stages, xring, occ) in geo.items():
+        d = res[name]["d"]
+        assert (occ, stages, xring) == want[d], (name, geo[name])
+        assert grid <= occ * sms
 
 
 @pytest.mark.cuda

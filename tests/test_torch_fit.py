@@ -155,12 +155,10 @@ def test_bucket_size_matches_reference(nq):
 
 
 def test_unported_features_raise():
-    # the precision policy and the memory tiers are ported; trace is not
+    # the precision policy, the memory tiers and the trace are ported
     for field, value in (("compute_dtype", "bfloat16"), ("host_spill", True),
-                         ("col_cache_cap", 8)):
+                         ("col_cache_cap", 8), ("trace", 16)):
         assert getattr(D.DCSVMConfig(**{field: value}), field) == value
-    with pytest.raises(NotImplementedError):
-        D.DCSVMConfig(trace=16)
 
     @dataclasses.dataclass(frozen=True)
     class OtherTask(D.Task):
