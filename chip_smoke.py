@@ -62,7 +62,8 @@ phases 8 and 9 before phase 7, 9(a) before 8(b)):
    cd_column_update a level-0 iteration); the
    early path through the kernels is held against its plain versions in
    float32 and float64 on the same queries; then kernel_matvec timed at
-   decision_exact's shape (the test queries against the support vectors);
+   decision_exact's shape (the test queries against the support vectors),
+   the products alone (torch.matmul) beside it;
 5. serving phase 4's early model (level-1 alpha, level-1 partition): a
    round-trip export (every SV, BCM) served exact and early (all queries)
    and bcm (the first 16,384) through serve_batch in 4,096-row buckets,
@@ -70,9 +71,28 @@ phases 8 and 9 before phase 7, 9(a) before 8(b)):
    decision_exact and decision_early; the default export (4,096 SVs a
    cluster, BCM) served bcm and early; the request loop of each strategy
    (50 batches of 256, then a ragged bucketed stream); the serve CLI at
-   its defaults for each strategy; with the launch count of every kernel
+   its defaults; with the launch count of every kernel
    over the serving path; then kermat timed at the bucketed (k, cap, d) x
-   (k, max_sv, d) shape of bucketed_cluster_scores on the default export;
+   (k, max_sv, d) shape of bucketed_cluster_scores on the default export,
+   the products alone (torch.bmm) beside it;
+   (b) the async engine (launch/engine.py) over the versioned registry
+   (launch/registry.py): version 1 the default export, version 2 the
+   round trip; warmup of buckets 8-256 for early and exact; a burst of 24
+   mixed-size requests (both versions, both strategies) queued before the
+   batch loop runs, each held bit for bit to a direct serve_batch of its
+   merged bucket and, served alone, within 2e-5 of 1 + sum_j K |w_j| with
+   the same predictions off a 1e-3 margin (how many also match alone bit
+   for bit is printed); a Poisson run at the serve CLI's defaults
+   (max_batch 256, 500 offered requests a second, sizes {1, 4, 16, 64} at
+   p {0.35, 0.3, 0.25, 0.1}), 2,000 early requests with a hot swap to
+   version 2 at the midpoint: every request delivered and served by the
+   version it resolved (held to it as above, and off the other), version 1
+   dropped after its drain, admitted p50/p95/p99, achieved requests and
+   queries a second, mean batch fill and each kernel's launches; an
+   overload (4 waves of 1,000 requests at once against max_queue_rows 512
+   and 5 ms deadlines): shed and expired both above 0, every future
+   resolved, the queue empty; no kernel library loaded after any warmup;
+   the serve CLI with --serve-async at its defaults;
 6. the solver loops' cost per step at the main path's shapes: wall time
    without the profiler, device time from torch.profiler, and their ratio,
    the device's busy share; the level-0 iteration graphed and eager;
@@ -94,7 +114,7 @@ phases 8 and 9 before phase 7, 9(a) before 8(b)):
    model's per-cluster rho_c and oneclass_early_gap_bound, the ocsvm
    export served exact and early against decision_exact and
    decision_early; (b) epsilon-SVR on friedman1 (65,536 x 10, eps 0.1, C
-   4, gamma 1, 10,000 iterations a (sub)problem, a cut from 30,000):
+   4, gamma 1, 5,000 iterations a (sub)problem, a cut from 30,000):
    level 0 graphed over the dedup view; test MSE below the
    mean predictor's, the svr export served exact;
 9. (a) phase 4's main path under compute_dtype="bfloat16" with a 4,096-row
@@ -202,16 +222,17 @@ OC_SIGMA_N = 1e-6                       # sigma_n given to the gap bound
 SVR_N, SVR_N_TEST, SVR_D = 65_536, 16_384, 10
 SVR_EPS, SVR_C = 0.1, 4.0
 SVR_PRED_TOL = 1e-2                     # phase 3: kernel vs plain SVR predictions
-# phase 8(b)'s SVR fit at 10,000 CD iterations a (sub)problem, cut from the
+# phase 8(b)'s SVR fit at 5,000 CD iterations a (sub)problem, cut from the
 # default 30,000 to keep the smoke inside its time limit with phase 9 (its
-# level 0 ran to the cap, about 2 ms an iteration).  Phase 3's SVR fit keeps
+# level 0 ran to the cap, about 2 ms an iteration), and from 10,000 when
+# phase 5(b) came (the whole smoke read 1,147.5 s on a slow host).  Phase 3's SVR fit keeps
 # 30,000 (at 10,000 its kernel and plain fits stopped 2e-4 apart in
 # objective) and is cut in scale instead, to FIT_N_SVR rows (a dual of
 # 6,144, above FIT_FULL_GRAM, so level 0 stays Gram-free and runs the
 # kernels; at 8,192 rows its level 0 took 28,841-30,000 iterations, 155 s
 # for the pair; at 4,096, 17,621-18,578 and 104.5 s, with the whole smoke
 # at 1,181 s of its 1,200)
-SVR_ITERS = 10_000
+SVR_ITERS = 5_000
 FIT_N_SVR = 3072
 PRED_MARGIN = 1e-3                      # phase 3: labels compared off |f| < this
 SVM_KERNELS = ("kermat", "kernel_matvec", "cd_column_update", "kmeans_assign")
@@ -253,10 +274,11 @@ FIT_TRACE = 4096                        # phase 3: level 0's ring a class
 # (packed rows past 384 columns), uniform rows, gamma 6 / XS_D
 XS_D, XS_N = 600, 16_384
 # phase 10: the ring stress check's launches a form (and under the check
-# build), the traced engines' rows, the iterations of the tracing cost
+# build), the traced engines' rows, the iterations of the tracing cost (12
+# replays a turn, 24 before phase 5(b) came)
 RING_LAUNCHES, RING_CHECK_LAUNCHES = 300, 50
 TRACE_N = 4096
-TRACE_COST_ITERS = 24
+TRACE_COST_ITERS = 12
 PHASE3_SPILL_BUDGET = 2048 * FIT_N * 4  # phase 3's spill fit: 4 panels
 MAIN: dict = {}                         # phase 4's numbers, for phase 9(a)
 ASSIGN_TOL = 1e-4                       # kmeans_assign scores (absolute)
@@ -264,7 +286,22 @@ ASSIGN_TIE = 2e-4                       # gap below which an argmin may differ
 SERVE_BUCKET = 4096                     # query rows a serving call
 SERVE_LOOP = (50, 256)                  # the serve CLI's request loop
 SERVE_STRATEGIES = ("exact", "early", "bcm")
+# the serve CLI runs at its defaults (early) once; it ran once a strategy
+# (three processes, 53 s) before phase 5(b) and its --serve-async run came
 BCM_CHECK_N = 4 * SERVE_BUCKET          # queries of the every-SV bcm check
+# phase 5(b): the async engine at the serve CLI's defaults (max_batch 256,
+# 500 offered requests a second, sizes {1, 4, 16, 64} at p {0.35, 0.3,
+# 0.25, 0.1}), a burst of mixed sizes, then an overload of ENGINE_WAVES
+# waves of requests all at once against a 512-row queue and 5 ms deadlines
+ENGINE_NAME = "covtype"
+ENGINE_BATCH = 256
+ENGINE_QPS = 500.0
+ENGINE_REQUESTS = 2000
+ENGINE_SIZES = ((1, 4, 16, 64), (0.35, 0.3, 0.25, 0.1))
+ENGINE_BURST = (1, 4, 16, 64, 3, 7, 100, 33, 250, 12, 64, 1, 16, 4, 200, 9,
+                64, 64, 64, 64, 2, 130, 5, 40)
+ENGINE_WAVES = (4, 1000, 0.02)           # waves, requests a wave, seconds apart
+OVERLOAD_QUEUE, OVERLOAD_TIMEOUT = 512, 5e-3
 LM_ARCH = "qwen1.5-0.5b"                # phase 7's model, full width
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32   # 31 decode steps after prefill
 # (arch, Hq, Hkv, hd) of the dense configs' attention
@@ -996,8 +1033,13 @@ def exact_matvec_case(torch, model, Xq):
     err = float((got - want).abs().max())
     rel = float(((got - want).abs() / (1.0 + mag)).max())
     del got, want, mag
+    def matmul():
+        for r in range(0, nq, blk):
+            Xq[r:r + blk] @ Xs.T
+
     ms = cuda_ms(torch, run, 3)
     plain_ms = cuda_ms(torch, plain, 1)
+    mm_ms = cuda_ms(torch, matmul, 3)
     nbytes = 4 * ((nq + ns) * d + ns + nq)
     bound_f32, _ = bound(nq * ns * (2 * d + 7), nbytes)
     sb, sby, detail = split_bound(nq * ns, d, nbytes)
@@ -1005,13 +1047,15 @@ def exact_matvec_case(torch, model, Xq):
         f"max_abs_err={err:.3e} max_err_over_1_plus_sum_K_abs_beta={rel:.3e} "
         f"(tolerance {EARLY_TOL:.0e}) kernel_ms={ms:.4f} plain_ms="
         f"{plain_ms:.4f} bound_ms={sb:.4f} ({detail}) bound_f32_ms="
-        f"{bound_f32:.4f} share_of_bound={sb / ms:.4f}")
+        f"{bound_f32:.4f} share_of_bound={sb / ms:.4f} library_ms(torch."
+        f"matmul, the products only, {blk}-row blocks)={mm_ms:.4f}")
     if not rel <= EARLY_TOL:
         raise AssertionError(f"kernel_matvec at decision_exact's shape "
                              f"disagrees with its plain version: {rel}")
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=sb,
-                bound_detail=detail, bound_f32_ms=bound_f32, n_sv=ns)
+                bound_detail=detail, bound_f32_ms=bound_f32, matmul_ms=mm_ms,
+                n_sv=ns)
 
 
 def kermat_serving_case(torch, sm, Xq, kern):
@@ -1047,6 +1091,8 @@ def kermat_serving_case(torch, sm, Xq, kern):
     del got, want, exact
     ms = cuda_ms(torch, run, 20, warmup=3)
     plain_ms = cuda_ms(torch, plain, 5)
+    mm_ms = cuda_ms(torch, lambda: torch.bmm(qbuf, Xsv.transpose(1, 2)), 20,
+                    warmup=3)
     pairs = k * cap * ns
     nbytes = 4 * (k * (cap + ns) * d + pairs)
     bound_f32, _ = bound(pairs * (2 * d + 5), nbytes)
@@ -1056,14 +1102,23 @@ def kermat_serving_case(torch, sm, Xq, kern):
         f"{rel:.3e} err_vs_f64={f64['kernel']:.3e} plain_err_vs_f64="
         f"{f64['plain']:.3e} (tolerance {KERMAT_TOL:.0e}) kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={sb:.4f} ({detail}) bound_f32_ms="
-        f"{bound_f32:.4f} share_of_bound={sb / ms:.4f}")
+        f"{bound_f32:.4f} share_of_bound={sb / ms:.4f} "
+        f"library_ms(torch.bmm, the products only)={mm_ms:.4f}")
     if not max(rel, *f64.values()) <= KERMAT_TOL:
         raise AssertionError(f"kermat at the serving bucket disagrees: {rel}, "
                              f"{f64}")
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=sb,
-                bound_detail=detail, bound_f32_ms=bound_f32,
+                bound_detail=detail, bound_f32_ms=bound_f32, matmul_ms=mm_ms,
                 shape=[k, cap, ns, d])
+
+
+def _sv_per_cluster(torch, early):
+    """Support vectors in each cluster of the early model's partition."""
+    part = early.partition
+    return [int((early.weights[torch.as_tensor(
+        part.idx[c][part.mask[c]], device=DEV)] != 0).sum())
+        for c in range(part.k)]
 
 
 def serve_all(sm, Xq, kern, strategy):
@@ -1101,10 +1156,7 @@ def phase_serving(torch, early, Xte, yte, d_eq10, d_early):
                                               run_request_loop)
 
     kern = early.config.kernel
-    part = early.partition
-    sv_per_cluster = [int((early.weights[torch.as_tensor(
-        part.idx[c][part.mask[c]], device=DEV)] != 0).sum())
-        for c in range(part.k)]
+    sv_per_cluster = _sv_per_cluster(torch, early)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1206,23 +1258,367 @@ def phase_serving(torch, early, Xte, yte, d_eq10, d_early):
                              f"{missing}")
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for strategy in SERVE_STRATEGIES:
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve_svm",
-             "--strategy", strategy], cwd=ROOT, env=env, capture_output=True,
-            text=True, timeout=300)
-        if out.returncode != 0:
-            raise AssertionError(f"serve CLI --strategy {strategy} failed:\n"
-                                 f"{out.stdout}\n{out.stderr}")
-        lines = out.stdout.strip().splitlines()
-        acc = float(next(line for line in lines if line.startswith(
-            "serving accuracy")).split(": ")[1])
-        log(f"serve CLI --strategy {strategy} ({time.perf_counter() - t0:.1f}s"
-            f" in all): " + " | ".join(lines))
-        if not acc > ACC_FLOOR:
-            raise AssertionError(f"serve CLI accuracy {acc} <= {ACC_FLOOR}")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_svm"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"serve CLI failed:\n{out.stdout}\n"
+                             f"{out.stderr}")
+    lines = out.stdout.strip().splitlines()
+    acc = float(next(line for line in lines if line.startswith(
+        "serving accuracy")).split(": ")[1])
+    log(f"serve CLI ({time.perf_counter() - t0:.1f}s in all): "
+        + " | ".join(lines))
+    if not acc > ACC_FLOOR:
+        raise AssertionError(f"serve CLI accuracy {acc} <= {ACC_FLOOR}")
     return launches, kermat_serving_case(torch, sm, Xte, kern)
+
+
+def _packed(sizes, max_batch):
+    """The batches the engine's _pop_ready forms from one group's queue
+    when every request is queued before the loop pops: request indices in
+    order, each batch up to ``max_batch`` rows (a larger request alone)."""
+    groups, cur, total = [], [], 0
+    for i, n in enumerate(sizes):
+        if cur and total + n > max_batch:
+            groups.append(cur)
+            cur, total = [], 0
+        cur.append(i)
+        total += n
+    return groups + [cur] if cur else groups
+
+
+def _abs_weights(torch, sm):
+    """A serving model with |w| and no offsets: its scores are the
+    magnitudes sum_j K(x, x_j) |w_j| of the decisions' terms."""
+    return sm._replace(Wsv=sm.Wsv.abs(), Wall=sm.Wall.abs(),
+                       rho=torch.zeros_like(sm.rho),
+                       rho_c=torch.zeros_like(sm.rho_c))
+
+
+def _served_close(torch, entry, strategy, rows, scores, pred, bucket=None):
+    """(largest difference of served ``scores`` from ``rows`` served
+    directly, relative to 1 + sum_j K |w_j|; predictions that differ off a
+    PRED_MARGIN gap between the top two scores; the direct scores).  The
+    direct call serves ``rows`` at ``bucket``, or in SERVE_BUCKET-row
+    calls."""
+    from repro_torch.launch.serve_svm import serve_batch
+
+    Xq = torch.as_tensor(rows, device=DEV)
+
+    def serve(sm):
+        if bucket is None:
+            return serve_all(sm, Xq, entry.kern, strategy)
+        return serve_batch(sm, Xq, entry.kern, strategy, bucket=bucket)
+
+    want_p, want = serve(entry.sm)
+    _, mag = serve(_abs_weights(torch, entry.sm))
+    got = torch.as_tensor(scores, device=DEV)
+    err = float(((got - want).abs() / (1.0 + mag)).max())
+    top = want.topk(2, dim=1).values
+    clear = (top[:, 0] - top[:, 1]) > PRED_MARGIN
+    differ = int((torch.as_tensor(pred, device=DEV) != want_p)[clear].sum())
+    return err, differ, want.cpu().numpy()
+
+
+def phase_engine(torch, early, Xte, smi):
+    """Phase 5(b): the async serving engine (launch/engine.py) over the
+    versioned registry (launch/registry.py) on phase 4's early model:
+    version 1 its default export (4,096 SVs a cluster, BCM), version 2 the
+    round-trip export (every SV, BCM).  Warmup of buckets 8-256 for early
+    and exact; a burst of mixed sizes (both versions, both strategies)
+    held bit for bit to a direct serve_batch of each merged bucket and,
+    served alone, to EARLY_TOL of 1 + sum_j K |w_j| with the same
+    predictions off PRED_MARGIN; a Poisson run at the serve CLI's defaults
+    with a hot swap to version 2 at its midpoint, every request checked
+    against the version it resolved; an overload against a 512-row queue
+    with 5 ms deadlines; the serve CLI with --serve-async at its defaults.
+    No kernel library may load after warmup."""
+    import asyncio
+    import os
+
+    import numpy as np
+
+    from repro_torch.core.predict import bucket_size
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import (AsyncServingEngine,
+                                           DeadlineExceeded, EngineConfig,
+                                           EngineOverloaded)
+    from repro_torch.launch.registry import ModelRegistry
+    from repro_torch.launch.serve_svm import serve_batch, serving_cache_size
+
+    pool = Xte.cpu().numpy()
+    reg = ModelRegistry()
+    t0 = time.perf_counter()
+    reg.register(ENGINE_NAME, early)
+    reg.register(ENGINE_NAME, early,
+                 max_sv_per_cluster=max(_sv_per_cluster(torch, early)))
+    torch.cuda.synchronize()
+    entries = {v: reg.resolve(ENGINE_NAME, v) for v in (1, 2)}
+    log(f"engine registry: {ENGINE_NAME} v1 (default export, SV blocks "
+        f"{tuple(entries[1].sm.Xsv.shape)}) and v2 (round trip, "
+        f"{tuple(entries[2].sm.Xsv.shape)}) in "
+        f"{time.perf_counter() - t0:.2f}s; manifests "
+        + json.dumps([{k: m[k] for k in ("version", "task", "n_sv", "k",
+                                         "max_sv_per_cluster", "strategies")}
+                      for m in reg.manifests()]))
+    config = EngineConfig(max_batch=ENGINE_BATCH)
+    rng = np.random.default_rng(SEED)
+
+    def warmed(cfg, strategies):
+        engine = AsyncServingEngine(reg, cfg)
+        t0 = time.perf_counter()
+        loaded = engine.warmup(strategies=strategies)
+        log(f"engine warmup {strategies} at buckets 8-{cfg.max_bucket} of "
+            f"versions {reg.versions(ENGINE_NAME)}: "
+            f"{time.perf_counter() - t0:.2f}s, {loaded} kernel libraries "
+            f"loaded")
+        return engine, serving_cache_size()
+
+    # -- the burst: queued before the loop pops, so the merges are fixed
+    combos = [(v, s) for v in (1, 2) for s in ("early", "exact")]
+    reqs = [(pool[rng.integers(0, pool.shape[0], size=n)],) + combos[i % 4]
+            for i, n in enumerate(ENGINE_BURST)]
+    engine, libs = warmed(config, ["early", "exact"])
+
+    async def burst():
+        async with engine:
+            return await asyncio.gather(*[
+                engine.submit(X, ENGINE_NAME, version=v, strategy=st)
+                for X, v, st in reqs])
+
+    outs = asyncio.run(burst())
+    worst, differ, same_alone = 0.0, 0, 0
+    for v, st in combos:
+        mine = [i for i, r in enumerate(reqs) if r[1:] == (v, st)]
+        entry = entries[v]
+        for group in _packed([len(reqs[i][0]) for i in mine], ENGINE_BATCH):
+            idx = [mine[j] for j in group]
+            rows = np.concatenate([reqs[i][0] for i in idx])
+            bucket = bucket_size(len(rows), lo=config.min_bucket,
+                                 hi=config.max_bucket)
+            mp, ms = serve_batch(entry.sm, rows, entry.kern, st,
+                                 bucket=bucket)
+            mp, ms = mp.cpu().numpy(), ms.cpu().numpy()
+            off = 0
+            for i in idx:
+                n = len(reqs[i][0])
+                pred, scores = outs[i]
+                if not (np.array_equal(scores, ms[off:off + n])
+                        and np.array_equal(pred, mp[off:off + n])):
+                    raise AssertionError(
+                        f"engine burst request {i} ({n} rows, v{v} {st}) is "
+                        f"not bit for bit its merged bucket's {bucket} rows")
+                off += n
+                err, dif, alone = _served_close(torch, entry, st, reqs[i][0],
+                                                scores, pred,
+                                                bucket=bucket_size(n))
+                same_alone += bool(np.array_equal(scores, alone))
+                worst, differ = max(worst, err), differ + dif
+    bst = engine.stats()
+    log(f"engine burst: {len(reqs)} requests ({sum(ENGINE_BURST)} rows; "
+        f"v1/v2 x early/exact) bit for bit their merged buckets: "
+        f"{len(reqs)}; bit for bit served alone: {same_alone} of "
+        f"{len(reqs)}; served alone, max error of 1 + sum_j K |w_j| "
+        f"{worst:.3e} (tolerance {EARLY_TOL:.0e}), predictions differing "
+        f"off a {PRED_MARGIN:.0e} margin {differ}; compiles after warmup "
+        f"{bst['compiles_after_warmup']}")
+    if not worst <= EARLY_TOL or differ:
+        raise AssertionError(f"engine burst against serving alone: {worst}, "
+                             f"{differ} predictions")
+    if bst["compiles_after_warmup"] or serving_cache_size() != libs:
+        raise AssertionError("kernel libraries loaded after the burst's "
+                             "warmup")
+
+    # -- the Poisson run, with a hot swap to v2 at its midpoint
+    sizes = rng.choice(ENGINE_SIZES[0], size=ENGINE_REQUESTS,
+                       p=ENGINE_SIZES[1])
+    arrivals = np.cumsum(rng.exponential(1.0 / ENGINE_QPS,
+                                         size=ENGINE_REQUESTS))
+    rows = [pool[rng.integers(0, pool.shape[0], size=int(n))] for n in sizes]
+    mid = ENGINE_REQUESTS // 2
+    engine, libs = warmed(config, ["early"])
+    versions, lats, outs, swapped = {}, {}, {}, {}
+
+    async def do_swap():
+        swapped["owed"] = engine._queued_matching(ENGINE_NAME, 1)
+        t0 = time.perf_counter()
+        swapped["old"] = await engine.swap(ENGINE_NAME, 2)
+        swapped["drain_s"] = time.perf_counter() - t0
+        swapped["versions"] = reg.versions(ENGINE_NAME)
+
+    async def one(i, tasks):
+        await asyncio.sleep(float(arrivals[i]))
+        # submit resolves the route before its first await: this read is
+        # the version it takes
+        versions[i] = reg.default_version(ENGINE_NAME)
+        if i == mid - 1:            # runs once this request is queued
+            tasks.append(asyncio.ensure_future(do_swap()))
+        t0 = time.perf_counter()
+        outs[i] = await engine.submit(rows[i], ENGINE_NAME, strategy="early")
+        lats[i] = time.perf_counter() - t0
+
+    async def poisson():
+        tasks = []
+        async with engine:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            await asyncio.gather(*[one(i, tasks)
+                                   for i in range(ENGINE_REQUESTS)])
+            await asyncio.gather(*tasks)
+            return time.perf_counter() - t0
+
+    wall = asyncio.run(poisson())
+    launches = dict(ops.LAUNCHES)
+    st = engine.stats()
+    by_version = {v: [i for i in range(ENGINE_REQUESTS) if versions[i] == v]
+                  for v in (1, 2)}
+    counted = {v: int(sum(c for k, c in engine.metrics.to_json()[
+        "counters"].items() if k.startswith("serve_requests_total")
+        and f'version="{v}"' in k)) for v in (1, 2)}
+    errs = {}
+    for v, other in ((1, 2), (2, 1)):
+        ids = by_version[v]
+        X = np.concatenate([rows[i] for i in ids])
+        S = np.concatenate([outs[i][1] for i in ids])
+        P = np.concatenate([outs[i][0] for i in ids])
+        errs[v] = _served_close(torch, entries[v], "early", X, S, P)[:2]
+        errs[f"{v}_against_v{other}"] = _served_close(
+            torch, entries[other], "early", X, S, P)[:2]
+    ms = np.sort(np.asarray(list(lats.values()))) * 1e3
+    hists = engine.metrics.to_json()["histograms"]
+    fill = hists["serve_batch_fill_ratio"]
+    queries = int(sizes.sum())
+    rec = {"offered_rps": ENGINE_QPS, "requests": ENGINE_REQUESTS,
+           "queries": queries, "delivered": len(outs),
+           "achieved_rps": len(outs) / wall, "achieved_qps": queries / wall,
+           "wall_s": wall, "p50_ms": float(np.percentile(ms, 50)),
+           "p95_ms": float(np.percentile(ms, 95)),
+           "p99_ms": float(np.percentile(ms, 99)),
+           "mean_ms": float(ms.mean()), "batches": fill["count"],
+           "mean_batch_fill": fill["sum"] / fill["count"],
+           # the engine's histograms (bucket bounds, not exact): a batch's
+           # formation to its results on the host, and a request's wait
+           "compute_ms": {q: 1e3 * hists["serve_compute_seconds"][q]
+                          for q in ("p50", "p99")},
+           "compute_ms_mean": 1e3 * hists["serve_compute_seconds"]["sum"]
+           / fill["count"],
+           "queue_wait_ms": {q: 1e3 * hists["serve_queue_wait_seconds"][q]
+                             for q in ("p50", "p99")},
+           "resolved_v1": len(by_version[1]), "resolved_v2":
+               len(by_version[2]), "served_v1": counted[1],
+           "served_v2": counted[2], "swap": swapped,
+           "compiles_after_warmup": st["compiles_after_warmup"],
+           "libraries_growth": serving_cache_size() - libs,
+           "launches": {k: launches[k] for k in SVM_KERNELS}, "card": smi,
+           "max_err_own_version": {v: errs[v][0] for v in (1, 2)},
+           "differing_predictions": {v: errs[v][1] for v in (1, 2)},
+           "max_err_other_version": {v: errs[f"{v}_against_v{o}"][0]
+                                     for v, o in ((1, 2), (2, 1))}}
+    log("engine poisson: " + json.dumps(rec))
+    if rec["delivered"] != ENGINE_REQUESTS or st["requests"] != \
+            ENGINE_REQUESTS or st["shed"] or st["deadline_exceeded"]:
+        raise AssertionError(f"engine poisson run lost requests: {st}")
+    # the route moves once: every request resolved v1 up to the swap (the
+    # request before the midpoint, and any whose timer fired in its loop
+    # turn), v2 after it, and the engine served each on that version
+    v1 = by_version[1]
+    if (v1 != list(range(len(v1))) or len(v1) < mid
+            or counted != {v: len(by_version[v]) for v in (1, 2)}):
+        raise AssertionError(f"hot swap: requests resolved {rec['resolved_v1']}"
+                             f" / {rec['resolved_v2']}, served {counted}")
+    if swapped["old"] != 1 or swapped["versions"] != [2] or not \
+            swapped["owed"]:
+        raise AssertionError(f"hot swap did not drain and drop v1 with "
+                             f"requests in flight: {swapped}")
+    if (max(errs[v][0] for v in (1, 2)) > EARLY_TOL
+            or errs[1][1] or errs[2][1]):
+        raise AssertionError(f"engine poisson results against their "
+                             f"versions: {errs}")
+    if min(errs[f"{v}_against_v{o}"][0] for v, o in ((1, 2), (2, 1))) \
+            <= EARLY_TOL:
+        raise AssertionError("v1 and v2 serve alike: the version check "
+                             f"cannot tell them apart: {errs}")
+    if rec["compiles_after_warmup"] or rec["libraries_growth"]:
+        raise AssertionError("kernel libraries loaded after warmup")
+    missing = [k for k in ("kermat", "kmeans_assign") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the engine: {missing}")
+
+    # -- overload: waves of requests all at once past what it sustains
+    waves, per_wave, gap = ENGINE_WAVES
+    engine, libs = warmed(EngineConfig(max_batch=ENGINE_BATCH,
+                                       max_queue_rows=OVERLOAD_QUEUE,
+                                       timeout_s=OVERLOAD_TIMEOUT), ["early"])
+    n_over = waves * per_wave
+    osizes = rng.choice(ENGINE_SIZES[0], size=n_over, p=ENGINE_SIZES[1])
+    orows = [pool[rng.integers(0, pool.shape[0], size=int(n))]
+             for n in osizes]
+    olats = {}
+
+    async def timed(i):
+        t0 = time.perf_counter()
+        out = await engine.submit(orows[i], ENGINE_NAME, strategy="early")
+        olats[i] = time.perf_counter() - t0
+        return out
+
+    async def overload():
+        async with engine:
+            futs = []
+            t0 = time.perf_counter()
+            for w in range(waves):
+                futs += [asyncio.ensure_future(timed(w * per_wave + j))
+                         for j in range(per_wave)]
+                await asyncio.sleep(gap)
+            got = await asyncio.wait_for(
+                asyncio.gather(*futs, return_exceptions=True), timeout=120)
+            return got, time.perf_counter() - t0
+
+    got, owall = asyncio.run(overload())
+    ost = engine.stats()
+    shed = sum(isinstance(o, EngineOverloaded) for o in got)
+    expired = sum(isinstance(o, DeadlineExceeded) for o in got)
+    other = [o for o in got if isinstance(o, BaseException)
+             and not isinstance(o, (EngineOverloaded, DeadlineExceeded))]
+    oms = np.sort(np.asarray(list(olats.values()))) * 1e3
+    orec = {"requests": n_over, "waves": waves, "wave_gap_s": gap,
+            "queries": int(osizes.sum()), "wall_s": owall,
+            "delivered": len(olats), "shed": shed, "expired": expired,
+            "stats_shed": ost["shed"], "stats_expired":
+                ost["deadline_exceeded"], "queue_depth": ost["queue_depth"],
+            "p50_ms": float(np.percentile(oms, 50)) if len(oms) else None,
+            "p99_ms": float(np.percentile(oms, 99)) if len(oms) else None,
+            "compiles_after_warmup": ost["compiles_after_warmup"],
+            "libraries_growth": serving_cache_size() - libs}
+    log("engine overload (max_queue_rows 512, timeout 5 ms): "
+        + json.dumps(orec))
+    if other or len(got) != n_over or shed + expired + len(olats) != n_over:
+        raise AssertionError(f"engine overload: futures unresolved or "
+                             f"failed otherwise: {other[:3]}")
+    if not (shed and expired and olats) or (shed, expired) != (
+            ost["shed"], ost["deadline_exceeded"]) or ost["queue_depth"]:
+        raise AssertionError(f"engine overload: {orec}")
+    if orec["compiles_after_warmup"] or orec["libraries_growth"]:
+        raise AssertionError("kernel libraries loaded after warmup")
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_svm",
+         "--serve-async"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"serve CLI --serve-async failed:\n"
+                             f"{out.stdout}\n{out.stderr}")
+    lines = out.stdout.strip().splitlines()
+    log(f"serve CLI --serve-async ({time.perf_counter() - t0:.1f}s in all): "
+        + " | ".join(lines))
+    summary = next(ln for ln in lines if ln.startswith("async early v1: "))
+    if "delivered 50 shed 0 expired 0" not in summary or not \
+            summary.endswith("after warmup 0"):
+        raise AssertionError(f"serve CLI --serve-async: {summary}")
+    return launches
 
 
 def _served_errors(sm, Xq, kern, pairs):
@@ -2846,9 +3242,13 @@ def main() -> int:
     t0 = time.perf_counter()
     serving, rows["kermat_serving"] = phase_serving(torch, early, Xte, yte,
                                                     d_eq10, d_early)
+    log(f"phase serving: {time.perf_counter() - t0:.2f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine_launches = phase_engine(torch, early, Xte, smi)
     del early, d_eq10, d_early
     torch.cuda.empty_cache()
-    log(f"phase serving: {time.perf_counter() - t0:.2f}s")
+    log(f"phase engine (5b): {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     level0 = phase_loops(torch, Xtr, ytr, cfg)
     log(f"phase loops: {time.perf_counter() - t0:.2f}s")
@@ -2903,7 +3303,8 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         if name in SVM_KERNELS:
-            row.update(launches_phase8a=oc_launches[name],
+            row.update(launches_engine=engine_launches[name],
+                       launches_phase8a=oc_launches[name],
                        launches_phase8b=svr_launches[name],
                        matmul_only_ms=r["matmul_ms"],
                        bound_detail=r["bound_detail"],

@@ -28,7 +28,13 @@ score - rho >= 0.
         --classes 3 --strategy early --batch 256 --batches 50 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve_svm --task svr|ocsvm
 
-The async engine (``--serve-async``) raises ``NotImplementedError``.
+``--serve-async`` serves a Poisson trace of mixed-size requests through the
+continuous-batching engine (``launch/engine.py``) over the versioned
+registry (``launch/registry.py``), on the device ``--device`` names:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_svm --serve-async \
+        [--qps 500] [--batches 50] [--max-queue 0] [--timeout-s 0] \
+        [--registry manifests.json] [--device cpu]
 """
 from __future__ import annotations
 
@@ -417,6 +423,73 @@ def _record_route_metrics(sm: ServingModel, kern: Kernel, blist, buckets,
     metrics.counter("serve_early_overflow_rounds_total").inc(overflow)
 
 
+def _serve_async(args, model, Xpool: np.ndarray) -> None:
+    """--serve-async: register the model, warm every bucket signature, and
+    drive a Poisson trace of mixed-size requests through the continuous-
+    batching engine (imports are local: registry and engine import this
+    module)."""
+    import asyncio
+
+    from repro_torch.launch.engine import (AsyncServingEngine,
+                                           DeadlineExceeded, EngineConfig,
+                                           EngineOverloaded)
+    from repro_torch.launch.registry import ModelRegistry
+
+    registry = ModelRegistry()
+    man = registry.register("default", model,
+                            with_bcm=(args.strategy == "bcm"))
+    if args.registry:
+        registry.save(args.registry)
+        print(f"registry manifests -> {args.registry}", flush=True)
+    engine = AsyncServingEngine(registry, EngineConfig(
+        max_batch=args.batch,
+        max_queue_rows=args.max_queue if args.max_queue > 0 else None,
+        timeout_s=args.timeout_s if args.timeout_s > 0 else None))
+    warm = engine.warmup(strategies=[args.strategy])
+    rng = np.random.default_rng(args.seed)
+    n_req = args.batches
+    sizes = rng.choice([1, 4, 16, 64], size=n_req, p=[0.35, 0.3, 0.25, 0.1])
+    arrivals = np.cumsum(rng.exponential(1.0 / args.qps, size=n_req))
+    lats: list = []
+    outcomes = {"shed": 0, "expired": 0}
+
+    async def one(delay: float, size: int) -> None:
+        await asyncio.sleep(delay)
+        Xq = Xpool[rng.integers(0, Xpool.shape[0], size=size)]
+        t0 = time.perf_counter()
+        try:
+            await engine.submit(Xq, "default", strategy=args.strategy)
+        except EngineOverloaded:
+            outcomes["shed"] += 1           # the in-process 429
+            return
+        except DeadlineExceeded:
+            outcomes["expired"] += 1
+            return
+        lats.append(time.perf_counter() - t0)
+
+    async def drive() -> None:
+        async with engine:
+            await asyncio.gather(*[
+                one(float(arrivals[i]), int(sizes[i])) for i in range(n_req)])
+
+    asyncio.run(drive())
+    stats = engine.stats()
+    # tails over admitted-and-delivered requests only: shed and expired
+    # requests fail fast by design and stay out of the latency report
+    ms = (np.asarray(lats) * 1e3 if lats else np.asarray([float("nan")]))
+    print(f"async {args.strategy} v{man.version}: {n_req} requests "
+          f"({int(sizes.sum())} queries) at {args.qps:.0f} offered rps | "
+          f"delivered {len(lats)} shed {outcomes['shed']} "
+          f"expired {outcomes['expired']} | "
+          f"admitted lat ms p50 {np.percentile(ms, 50):.2f} "
+          f"p95 {np.percentile(ms, 95):.2f} p99 {np.percentile(ms, 99):.2f} "
+          f"| warmup compiles {warm}, after warmup "
+          f"{stats['compiles_after_warmup']}", flush=True)
+    if args.metrics_out:
+        prom = engine.metrics.dump(args.metrics_out)
+        print(f"metrics -> {args.metrics_out} and {prom}", flush=True)
+
+
 def main(argv=None) -> None:
     from repro_torch.core.dcsvm import fit
     from repro_torch.core.predict import accuracy_multiclass, f1, mse, recall
@@ -446,12 +519,25 @@ def main(argv=None) -> None:
                          "request/route counters) as JSON at this path plus "
                          "Prometheus text exposition next to it (.prom)")
     ap.add_argument("--serve-async", action="store_true",
-                    help="the asyncio continuous-batching engine (not "
-                         "ported yet, ROADMAP A16)")
+                    help="serve through the asyncio continuous-batching "
+                         "engine (launch/engine.py): Poisson arrivals with "
+                         "mixed request sizes against the versioned "
+                         "registry, instead of the fixed-batch sync loop")
+    ap.add_argument("--qps", type=float, default=500.0,
+                    help="offered Poisson request rate for --serve-async")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="--serve-async admission bound on queued query "
+                         "rows; submits past it shed with EngineOverloaded "
+                         "(0 = unbounded)")
+    ap.add_argument("--timeout-s", type=float, default=0.0,
+                    help="--serve-async default per-request deadline; "
+                         "requests expiring in queue resolve with "
+                         "DeadlineExceeded before batch formation "
+                         "(0 = none)")
+    ap.add_argument("--registry", default="",
+                    help="write the model registry's manifests JSON here "
+                         "(--serve-async)")
     args = ap.parse_args(argv)
-    if args.serve_async:
-        raise NotImplementedError("--serve-async (the async serving engine) "
-                                  "is not ported yet (ROADMAP A16)")
     dev = resolve_device(args.device)
 
     kern = Kernel("rbf", gamma=args.gamma)
@@ -493,6 +579,10 @@ def main(argv=None) -> None:
     else:
         acc = accuracy_multiclass(yte, pred)
         print(f"serving accuracy ({args.strategy}): {acc:.4f}", flush=True)
+
+    if args.serve_async:
+        _serve_async(args, model, Xte)
+        return
 
     idx = rng.integers(0, Xte.shape[0], size=(args.batches, args.batch))
     batches = torch.as_tensor(Xte[idx], device=dev)

@@ -1244,3 +1244,105 @@ def test_cuda_spill_matches_cpu_counters(cuda_device):
     f_cpu = float(S.objective(cpu_opt.alpha, cpu_opt.grad))
     f_gpu = float(S.objective(gpu_opt.alpha.cpu(), gpu_opt.grad.cpu()))
     assert abs(f_gpu - f_cpu) <= 1e-4 * abs(f_cpu)
+
+
+def _packed(sizes, max_batch):
+    """The batches the engine forms from one group's queue when every
+    request is queued before its loop pops (``engine._pop_ready``)."""
+    groups, cur, total = [], [], 0
+    for i, n in enumerate(sizes):
+        if cur and total + n > max_batch:
+            groups.append(cur)
+            cur, total = [], 0
+        cur.append(i)
+        total += n
+    return groups + [cur] if cur else groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["early", "exact"])
+def test_cuda_engine_on_an_explicit_device(cuda_device, monkeypatch,
+                                           strategy):
+    """The async engine over a model fitted on an explicit cuda:0: every
+    serve_batch on the engine's one device thread with cuda:0 current; a
+    burst's requests bit for bit a direct serve_batch of their merged
+    bucket and, served alone, within 2e-5 of 1 + sum_j K |w_j| with the
+    same predictions off a 1e-3 margin; kermat's rows the same bits alone
+    and merged (only the product with the weights follows the bucket);
+    kermat and kmeans_assign launched; no library loaded after warmup."""
+    import asyncio
+    import threading
+
+    from repro_torch.core import DCSVMConfig, fit_ova
+    from repro_torch.core.predict import bucket_size
+    from repro_torch.data import gaussian_mixture_multiclass
+    from repro_torch.launch import engine as E
+    from repro_torch.launch.registry import ModelRegistry
+    from repro_torch.launch.serve_svm import serve_batch, serving_cache_size
+
+    X, y = gaussian_mixture_multiclass(np.random.default_rng(0), 3000,
+                                       n_classes=3, d=10)
+    kern = Kernel("rbf", gamma=8.0)
+    model = fit_ova(DCSVMConfig(kernel=kern, C=4.0, k=4, levels=2, m=500),
+                    X, y, device=cuda_device)
+    reg = ModelRegistry()
+    reg.register("m", model)
+    sm = reg.resolve("m").sm
+    assert sm.device == cuda_device
+    seen = []
+
+    def recording(*a, **kw):
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_device()))
+        return serve_batch(*a, **kw)
+
+    config = E.EngineConfig(max_batch=64)
+    engine = E.AsyncServingEngine(reg, config)
+    engine.warmup(strategies=[strategy])
+    libs = serving_cache_size()
+    monkeypatch.setattr(E, "serve_batch", recording)
+    rng = np.random.default_rng(1)
+    sizes = [1, 7, 33, 12, 64, 50, 3, 28, 16, 4]
+    reqs = [X[rng.integers(0, len(X), size=n)] for n in sizes]
+
+    async def burst():
+        async with engine:
+            return await asyncio.gather(*[
+                engine.submit(r, "m", strategy=strategy) for r in reqs])
+
+    ops.reset_launches()
+    outs = asyncio.run(burst())
+    launches = dict(ops.LAUNCHES)
+    assert launches["kermat"] and launches["kmeans_assign"] == (
+        len(_packed(sizes, 64)) if strategy == "early" else 0)
+    assert len(seen) == len(_packed(sizes, 64))
+    assert {t for t, _ in seen} == {seen[0][0]} != {"MainThread"}
+    assert {d for _, d in seen} == {0}
+    assert engine.stats()["compiles_after_warmup"] == 0
+    assert serving_cache_size() == libs
+    absm = sm._replace(Wsv=sm.Wsv.abs(), Wall=sm.Wall.abs())
+    for group in _packed(sizes, 64):
+        rows = np.concatenate([reqs[i] for i in group])
+        bucket = bucket_size(len(rows), hi=64)
+        mp, ms = serve_batch(sm, rows, kern, strategy, bucket=bucket)
+        k_merged = ops.kernel_matrix(torch.as_tensor(rows, device=cuda_device),
+                                     sm.Xall, kern)
+        off = 0
+        for i in group:
+            n = len(reqs[i])
+            pred, scores = outs[i]
+            np.testing.assert_array_equal(scores, ms[off:off + n].cpu())
+            np.testing.assert_array_equal(pred, mp[off:off + n].cpu())
+            k_alone = ops.kernel_matrix(
+                torch.as_tensor(reqs[i], device=cuda_device), sm.Xall, kern)
+            assert torch.equal(k_alone, k_merged[off:off + n])
+            off += n
+            ap, alone = serve_batch(sm, reqs[i], kern, strategy,
+                                    bucket=bucket_size(n))
+            _, mag = serve_batch(absm, reqs[i], kern, strategy,
+                                 bucket=bucket_size(n))
+            alone, mag = alone.cpu().numpy(), mag.cpu().numpy()
+            assert (np.abs(scores - alone) / (1 + mag)).max() <= 2e-5
+            top = np.sort(alone, axis=1)
+            clear = top[:, -1] - top[:, -2] > 1e-3
+            np.testing.assert_array_equal(pred[clear], ap.cpu()[clear])

@@ -17,6 +17,7 @@ from repro_torch.core import DCSVMConfig, Kernel, fit, predict_exact, accuracy
 from repro_torch.data import gaussian_mixture
 import repro_torch.convert, repro_torch.launch.serve_svm, repro_torch.launch.train_svm
 import repro_torch.configs, repro_torch.models.lm, repro_torch.launch.serve
+import repro_torch.launch.engine, repro_torch.launch.registry
 from repro_torch.launch import serve
 X, y = gaussian_mixture(np.random.default_rng(0), 200, d=4, modes_per_class=2)
 cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=4.0), C=2.0, levels=1, m=50)
@@ -40,6 +41,27 @@ def test_port_runs_without_jax_or_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+# the reference's ``repro.core`` names under another name in the port, and
+# the ones whose module is not ported yet (none: A17 adds no core name)
+RENAMED = {"resolve_use_pallas": "resolve_use_kernels"}
+LEFT_FOR_A17: frozenset = frozenset()
+
+
+def test_core_exports_the_reference_names():
+    """``repro_torch.core`` exports every name that the reference's
+    ``repro/core/__init__.py`` binds (read from its source: importing it
+    would import JAX)."""
+    import repro_torch.core as core
+
+    tree = ast.parse((SRC / "repro" / "core" / "__init__.py").read_text())
+    names = {a.asname or a.name for node in tree.body
+             if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert len(names) == 75
+    missing = {n for n in names if RENAMED.get(n, n) not in core.__all__}
+    assert missing == LEFT_FOR_A17, sorted(missing)
+    assert all(hasattr(core, n) for n in core.__all__)
 
 
 def test_no_module_imports_jax_or_the_reference():

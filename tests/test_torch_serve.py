@@ -8,6 +8,8 @@ reference's kernel_matvec tolerance; the BCM solves run in float32 on both
 sides).  The port runs its plain versions and, through the kernel
 wrappers, the kernels' plain versions.
 """
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -224,9 +226,23 @@ def test_bcm_factor_failure_names_the_cluster():
         S._bcm_factor(Kernel("rbf", gamma=1.0), Xsv, mask, -1.0, False)
 
 
-def test_unported_tasks_and_async_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        S.main(["--serve-async", "--device", "cpu"])
+def test_unported_tasks_and_async_raise(capsys, tmp_path):
+    """``--serve-async`` serves on the CPU: a Poisson trace of 30
+    mixed-size requests through the engine, every one delivered, with the
+    reference's summary fields and the registry's manifests saved."""
+    reg = tmp_path / "registry.json"
+    S.main(["--serve-async", "--device", "cpu", "--n", "600", "--batches",
+            "30", "--registry", str(reg)])
+    text = capsys.readouterr().out
+    line = next(ln for ln in text.splitlines()
+                if ln.startswith("async early v1: 30 requests ("))
+    for field in ("queries) at 500 offered rps", "delivered 30 shed 0 "
+                  "expired 0", "admitted lat ms p50 ", " p95 ", " p99 ",
+                  "warmup compiles 0, after warmup 0"):
+        assert field in line, (field, line)
+    saved = json.loads(reg.read_text())
+    assert saved["route"] == {"default": 1}
+    assert saved["models"][0]["strategies"] == ["exact", "early"]
 
 
 def test_cli_serves_on_the_cpu(capsys, tmp_path):
