@@ -6,8 +6,9 @@
 Run from the root of a checkout on a machine with one GPU and the CUDA
 toolkit.  It builds the hand-written kernels from src/repro_torch/kernels/
 csrc/ with nvcc (into build/repro_torch_kernels/; bf16_gram.cu also as
-its ring check build) and runs ten phases (phase 10 runs after phase 6,
-phases 8 and 9 before phase 7, 9(a) before 8(b)):
+its ring check build) and runs eleven phases (phase 11 runs after phase
+4, phase 10 after phase 6, phases 8 and 9 before phase 7, 9(a) before
+8(b)):
 
 1. environment: card, power limit, versions, kernel build time and each
    kernel's registers and spills (ptxas -v); TF32 off;
@@ -64,6 +65,30 @@ phases 8 and 9 before phase 7, 9(a) before 8(b)):
    float32 and float64 on the same queries; then kernel_matvec timed at
    decision_exact's shape (the test queries against the support vectors),
    the products alone (torch.matmul) beside it;
+11. the distributed DC-SVM (core/distributed.py, launch/mesh.py) on
+   phase 4's data: (a) the CE-PBM conquer at the split, one rank over
+   NCCL, B = 64, warm-started from phase 4's refine alpha: up to 1,000
+   rounds through the kernels, traced, whose objective never rises
+   (the ring's, within 1e-5 of its size for f32 sums) and ends below the
+   start, pg_max at the returned alpha, one kernel_matvec and one
+   cd_column_update a round; ms a round eager (wall, 128 rounds) and the
+   device's busy share (the profiler, 8 rounds); the first 64 rounds
+   against the plain versions and the cached path (2,048 rows, 3.8 GB:
+   hits + misses = rounds x 64), the same rounds, the objective to 1e-4
+   relative; 200 rounds under compute_dtype="bfloat16" with the cache
+   against its plain run (1e-4); (b) divide_step on 32 of phase 4's 256
+   level-4 clusters at 5,000 iterations a cluster: bit for bit
+   solve_box_qp on the same kermat Grams, and the first cluster bit for
+   bit again alone (a gram_budget one byte short); (c) and (d) run
+   beside (a)'s checks and (b), once (a) has timed its round: (c) two
+   ranks on
+   the card over gloo (torch.multiprocessing) on 4,096 covtype_like
+   rows (gamma 1, C 8): the conquer from zero (tol 1e-3, 5,000 rounds at
+   most) in both modes and fit_distributed at levels 2, k 4, each
+   objective within 1e-3 of the port's dense solve_with_shrinking on the
+   card (run meanwhile), the rounds at P = 2 printed; (d) train_svm
+   --distributed under torch.distributed.run, two ranks over gloo,
+   covtype_like n = 4,000;
 5. serving phase 4's early model (level-1 alpha, level-1 partition): a
    round-trip export (every SV, BCM) served exact and early (all queries)
    and bcm (the first 16,384) through serve_batch in 4,096-row buckets,
@@ -281,6 +306,37 @@ TRACE_N = 4096
 TRACE_COST_ITERS = 12
 PHASE3_SPILL_BUDGET = 2048 * FIT_N * 4  # phase 3's spill fit: 4 panels
 MAIN: dict = {}                         # phase 4's numbers, for phase 9(a)
+# phase 11, the distributed DC-SVM: (a) the conquer at the split, one rank
+# over NCCL, B = 64, warm-started from phase 4's refine alpha, up to
+# DIST_ROUNDS rounds (traced, its objective never rising), the first
+# DIST_HOLD against the plain versions, the cached path (DIST_CACHE rows of
+# 464,810 f32, 3.8 GB), bf16 with the cache over DIST_BF16_ROUNDS, ms a
+# round over DIST_TIMED rounds (the profiler over DIST_PROF);
+# (b) divide_step on DIST_CLUSTERS of phase 4's level-4 clusters at
+# DIST_DIVIDE_ITERS iterations a cluster, the sequential sweep on the first
+# DIST_SEQ_CLUSTERS (cuts: 32 of 256 clusters, 5,000 of 30,000 iterations,
+# 1 of them one at a time: 2.1 s a cluster eager); (c) two ranks on the one card over gloo on
+# DIST_P2_N covtype_like rows (a cut of the split: 16,384 rows took 101 s,
+# D5, 13 ms a parallel round), gamma 1, C 8, the
+# conquer from zero at tol 1e-3 and fit_distributed at levels 2, k 4, each
+# objective within 1e-3 of the dense solve; (d) the train CLI under
+# torch.distributed.run, two ranks over gloo, n = DIST_CLI_N
+DIST_ROUNDS, DIST_HOLD, DIST_B = 1000, 64, 64
+DIST_CACHE, DIST_BF16_ROUNDS, DIST_TIMED = 2048, 200, 128
+DIST_PROF = 8                            # 11(a)'s profiled rounds
+DIST_CLUSTERS, DIST_DIVIDE_ITERS = 32, 5000
+DIST_SEQ_CLUSTERS = 1                    # of them, solved one at a time
+DIST_P2_N, DIST_P2_ROUNDS, DIST_P2_TOL = 4096, 5000, 1e-3
+DIST_CLI_N = 4000
+DIST_GRAD_CHUNKS = 2048                  # the plain initial gradient's rows
+DIST_RISE = 1e-5                         # of |objective|: f32 ring noise
+# 11(a)'s runs against the kernels' over the same rounds, relative
+# objective.  The paths can part at f32 near-ties of the top-B scores
+# among 464,810: from phase 4's refine alpha plain, cached and bf16 read
+# 4.2e-6, 7.9e-8 and 3.8e-5 (D9); from a 2,000-iteration fit's, the plain
+# path parted at round 0 (its initial gradient's sums) and the cached one
+# at round 19 (kermat's rows, no mean shift): 9.0e-5, 2.7e-4, 6.4e-4
+DIST_PATH_TOL = 1e-4
 ASSIGN_TOL = 1e-4                       # kmeans_assign scores (absolute)
 ASSIGN_TIE = 2e-4                       # gap below which an argmin may differ
 SERVE_BUCKET = 4096                     # query rows a serving call
@@ -897,8 +953,9 @@ def early_errors(early, Xq):
     return errs
 
 
-def phase_main(torch, Xtr, ytr, Xte, yte, cfg):
-    """Phase 4: the main path, with every launch counted."""
+def phase_main(torch, Xtr, ytr, Xte, yte, cfg, fit4=None):
+    """Phase 4: the main path, with every launch counted; ``fit4`` (a
+    dict) receives its refine alpha and partitions for phase 11."""
     import dataclasses
 
     from repro_torch.core import (accuracy, decision_early, decision_exact,
@@ -924,7 +981,7 @@ def phase_main(torch, Xtr, ytr, Xte, yte, cfg):
     timer = SpanTimer()
     ops.reset_launches()
     t0 = time.perf_counter()
-    with timer.activate():
+    with timer.activate(), _capture_fit({} if fit4 is None else fit4):
         model = fit(cfg, Xtr, ytr, callback=cb, device=DEV)
     t_fit = time.perf_counter() - t0
     obj = float(objective_value(cfg, model.X, model.y, model.alpha))
@@ -3138,6 +3195,491 @@ def phase_trace(torch, Xtr, ytr, cfg):
     return dict(ring=ring, engines=checked, trace_cost=cost)
 
 
+def _capture_fit(store: dict):
+    """Around phase 4's fit: keep what phase 11 reuses, level 0's warm
+    start (the refine pass's alpha: what ``_solve_full`` starts from) and
+    every level's partition, by k."""
+    import contextlib
+
+    from repro_torch.core import dcsvm
+
+    @contextlib.contextmanager
+    def capture():
+        solve_full, kmeans = dcsvm._solve_full, dcsvm.two_step_kernel_kmeans
+
+        def solve(cfg, td, alpha, use_kernels=False):
+            store["refine_alpha"] = alpha[0].clone()
+            return solve_full(cfg, td, alpha, use_kernels=use_kernels)
+
+        def cluster(kernel, X, k, *a, **kw):
+            part = kmeans(kernel, X, k, *a, **kw)
+            store.setdefault("partitions", {})[k] = part
+            return part
+
+        dcsvm._solve_full, dcsvm.two_step_kernel_kmeans = solve, cluster
+        try:
+            yield store
+        finally:
+            dcsvm._solve_full = solve_full
+            dcsvm.two_step_kernel_kmeans = kmeans
+
+    return capture()
+
+
+def _dist_conquer(torch, mesh, X, y, cfg, a0, after_timing):
+    """Phase 11(a): the CE-PBM conquer at the split, one rank;
+    ``after_timing()`` runs once the round is timed (it starts the
+    background parts)."""
+    import dataclasses
+
+    from repro_torch.core import distributed as DI
+    from repro_torch.core import objective_value
+    from repro_torch.core.solver import SYNC_EVERY
+    from repro_torch.kernels import ops
+    from repro_torch.obs.trace import trace_fetch
+
+    base = DI.ConquerConfig(kernel=cfg.kernel, C=cfg.C, tol=cfg.tol,
+                            max_iters=DIST_ROUNDS, block=DIST_B,
+                            mode="parallel")
+
+    def run(c, **kw):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = DI.conquer_step(mesh, "i", c, X, y, a0, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+    def obj(alpha):
+        return float(objective_value(cfg, X, y, alpha))
+
+    f0 = obj(a0)
+    out = {"objective_start": f0}
+    # up to DIST_ROUNDS rounds through the kernels, traced
+    (alpha, rounds, pg, tr), secs, launches = run(
+        dataclasses.replace(base, trace_cap=DIST_ROUNDS))
+    rounds, pg = int(rounds), float(pg)
+    ring = trace_fetch(tr)["objective"]
+    rise = max([b - a for a, b in zip(ring, ring[1:])] + [0.0])
+    f1 = obj(alpha)
+    steps = launches["cd_column_update"]
+    log(f"11(a) conquer, {X.shape[0]} rows, one rank over NCCL, B {DIST_B}, "
+        f"traced: {rounds} rounds in {secs:.2f}s, pg_max {pg:.4e} at the "
+        f"returned alpha, objective {f0:.6f} -> {f1:.6f}, largest rise of "
+        f"the ring's objective {rise:.3e}; launches {launches}")
+    if not (math.isfinite(pg) and math.isfinite(f1) and f1 <= f0):
+        raise AssertionError(f"11(a): objective {f0} -> {f1}, pg {pg}")
+    if rise > DIST_RISE * abs(ring[0]):
+        raise AssertionError(f"11(a): the objective rose by {rise}")
+    if launches["kernel_matvec"] != 1 or not (
+            steps == rounds if rounds == DIST_ROUNDS
+            else rounds <= steps < rounds + SYNC_EVERY):
+        raise AssertionError(f"11(a) launches {launches}, {rounds} rounds")
+    out.update(rounds=rounds, pg_max=pg, objective=f1, seconds=secs,
+               ring_rise=rise, launches=launches)
+
+    # ms a round, eager and untraced, and the device's busy share
+    bare = dataclasses.replace(base, trace_cap=0)
+    # a round's cost: 4 + DIST_TIMED rounds less 4 (both past the
+    # sub-solve graph's capture), wall, the least of two runs each (a
+    # host hiccup of a second would read 8 ms a round); device time by
+    # kernel from the profiler over a run of DIST_PROF rounds, without
+    # kernel_matvec (the one initial gradient a conquer; the profiler
+    # drops its long record in some runs), over DIST_PROF: every round
+    # runs one sub-solve (eagerly in the graph's two warm-up rounds), and
+    # the rest of the set-up is a few small kernels.  A profiled session
+    # costs seconds (a record of each of the sub-solve graph's 1,280
+    # kernels a replay), so there is one, over few rounds
+    t0 = time.perf_counter()
+
+    def rounds(s):
+        DI.conquer_step(mesh, "i", dataclasses.replace(bare, max_iters=s),
+                        X, y, a0)
+
+    rounds(4)       # the first untraced call has a one-off of about 1 s
+    wall = (min(wall_ms(torch, lambda: rounds(4 + DIST_TIMED))
+                for _ in range(2))
+            - min(wall_ms(torch, lambda: rounds(4)) for _ in range(2))
+            ) / DIST_TIMED
+    dev = {k: ms / DIST_PROF for k, (ms, c) in
+           device_ms(torch, lambda: rounds(DIST_PROF)).items()
+           if "kernel_matvec" not in k}
+    out["timing_s"] = time.perf_counter() - t0
+    busy = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+    log(f"11(a) a round, eager, untraced: {wall:.4f} ms wall, device "
+        f"{busy:.4f} ms, busy {100 * busy / wall:.1f}% (over "
+        f"{DIST_TIMED} rounds, the profiler over {DIST_PROF}; "
+        f"{out['timing_s']:.1f}s); top: "
+        + "; ".join(f"{k[:50]} {v:.4f}" for k, v in top))
+    out.update(ms_round=wall, device_ms_round=busy, busy=busy / wall)
+    after_timing()
+
+    # the first DIST_HOLD rounds through the kernels, the plain versions
+    # and the cached path, traced: where their objectives first part
+    t0 = time.perf_counter()
+    held, rings = {}, {}
+    for name, over in (("kernels", {}), ("plain", dict(use_kernels=False)),
+                       ("cached", dict(cache_cap=DIST_CACHE))):
+        counters = {}
+        (a, r, p, t), secs, launched = run(dataclasses.replace(
+            bare, max_iters=DIST_HOLD, grad_chunks=DIST_GRAD_CHUNKS,
+            trace_cap=DIST_HOLD, **over), counters=counters)
+        rings[name] = trace_fetch(t)["objective"]
+        held[name] = dict(rounds=int(r), objective=rings[name][-1],
+                          seconds=secs,
+                          launches=launched,
+                          **{k: int(v) for k, v in counters.items()})
+
+    def parted(a, b):
+        return next((i for i, (u, v) in enumerate(zip(a, b))
+                     if abs(u - v) > 1e-6 * abs(v)), None)
+
+    fk = held["kernels"]["objective"]
+    for name in ("plain", "cached"):
+        h = held[name]
+        h["rel"] = abs(h["objective"] - fk) / abs(fk)
+        h["parted_at_round"] = parted(rings["kernels"], rings[name])
+        log(f"11(a) {DIST_HOLD} rounds, kernels / {name}: rounds "
+            f"{held['kernels']['rounds']} / {h['rounds']}, objective "
+            f"{fk:.6f} / {h['objective']:.6f} (rel {h['rel']:.3e}; the "
+            f"rings' objectives part at round {h['parted_at_round']}), "
+            f"{held['kernels']['seconds']:.2f} / {h['seconds']:.2f}s; "
+            f"launches {h['launches']}")
+    c = held["cached"]
+    log(f"11(a) cached ({DIST_CACHE} rows of {X.shape[0]}): hits "
+        f"{c['cache_hits']} + misses {c['cache_misses']} rows")
+    for name in ("plain", "cached"):
+        if held[name]["rounds"] != held["kernels"]["rounds"] \
+                or held[name]["rel"] > DIST_PATH_TOL:
+            raise AssertionError(f"11(a) kernels vs {name}: {held}")
+    if c["cache_hits"] + c["cache_misses"] != c["rounds"] * DIST_B:
+        raise AssertionError(f"11(a) cache counters: {c}")
+    out["held"] = held
+    out["held_s"] = time.perf_counter() - t0
+
+    # bf16 with the cache, kernels against plain
+    t0 = time.perf_counter()
+    bf = {}
+    for use_kernels in (True, False):
+        (a, r, p, t), secs, launched = run(dataclasses.replace(
+            bare, max_iters=DIST_BF16_ROUNDS, cache_cap=DIST_CACHE,
+            compute_dtype="bfloat16", use_kernels=use_kernels,
+            grad_chunks=DIST_GRAD_CHUNKS, trace_cap=DIST_BF16_ROUNDS))
+        bf[use_kernels] = (int(r), trace_fetch(t)["objective"][-1], secs,
+                           launched)
+    (rk, fk, sk, lk), (rp, fp, sp, _) = bf[True], bf[False]
+    log(f"11(a) bf16 + cache, {DIST_BF16_ROUNDS} rounds, kernels / plain: "
+        f"rounds {rk} / {rp}, objective {fk:.6f} / {fp:.6f} (rel "
+        f"{abs(fk - fp) / abs(fp):.3e}), {sk:.2f} / {sp:.2f}s; kernel "
+        f"launches {lk}")
+    if rk != rp or abs(fk - fp) > DIST_PATH_TOL * abs(fp) \
+            or not lk["kermat_bf16"] or not lk["kernel_matvec_bf16"]:
+        raise AssertionError(f"11(a) bf16: {bf}")
+    out["bf16"] = dict(kernels=bf[True][:3], plain=bf[False][:3])
+    out["bf16_s"] = time.perf_counter() - t0
+    return out
+
+
+def _dist_divide(torch, mesh, X, y, cfg, part):
+    """Phase 11(b): divide_step on DIST_CLUSTERS of phase 4's level-4
+    clusters: bit for bit solve_box_qp on the same kermat Grams, and bit
+    for bit again one cluster at a time."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import distributed as DI
+    from repro_torch.core import solver as S
+    from repro_torch.kernels import ops
+
+    idx, mask = part.idx[:DIST_CLUSTERS], part.mask[:DIST_CLUSTERS]
+    gi = torch.as_tensor(np.maximum(idx, 0), device=DEV)
+    m = torch.as_tensor(mask, device=DEV)
+    Xc, yc = X[gi].contiguous(), y[gi]
+    pc, cc = torch.full_like(yc, -1.0), torch.full_like(yc, cfg.C)
+    ac = torch.zeros_like(yc)
+    k, nc = idx.shape
+    dcfg = dataclasses.replace(cfg, max_iters=DIST_DIVIDE_ITERS)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A = DI.divide_step(mesh, "i", dcfg, Xc, yc, pc, cc, ac, m)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    K = torch.stack([ops.kernel_matrix(Xc[j], Xc[j], cfg.kernel)
+                     for j in range(k)])
+    Q = (yc[:, :, None] * yc[:, None, :]) * torch.where(
+        m[:, :, None] & m[:, None, :], K, 0.0)
+    Q = Q + torch.diag_embed((~m).to(Q.dtype))
+    ref = S.solve_box_qp(Q, cc, alpha0=torch.where(m, ac, 0.0), tol=cfg.tol,
+                         max_iters=DIST_DIVIDE_ITERS, active_mask=m, p=pc)
+    del K, Q
+    # the sequential sweep (a budget one byte short of the batch) on the
+    # first DIST_SEQ_CLUSTERS: bit for bit the batched solve's rows (each
+    # cluster's Gram and solve are the same bits in a batch or alone)
+    ks = DIST_SEQ_CLUSTERS
+    seq = dataclasses.replace(dcfg, gram_budget=ks * nc * nc * 4 - 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A_seq = DI.divide_step(mesh, "i", seq, Xc[:ks], yc[:ks], pc[:ks],
+                           cc[:ks], ac[:ks], m[:ks])
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    same, same_seq = torch.equal(A, ref.alpha), torch.equal(A_seq, A[:ks])
+    iters = ref.iters.cpu()
+    log(f"11(b) divide_step, {k} level-4 clusters of up to {nc} rows at "
+        f"{DIST_DIVIDE_ITERS} iterations: {t_batch:.2f}s batched "
+        f"(iterations {int(iters.min())}-{int(iters.max())}), bit for bit "
+        f"solve_box_qp on the same kermat Grams: {same}; the first {ks} one "
+        f"at a time: {t_seq:.2f}s, bit for bit the batch's: {same_seq}; "
+        f"launches {launches}")
+    if not (same and same_seq) or launches["kermat"] != k:
+        raise AssertionError("11(b) divide_step differs")
+    return dict(clusters=k, nc=nc, batched_s=t_batch, sequential_s=t_seq,
+                sequential_clusters=ks,
+                iters=(int(iters.min()), int(iters.max())))
+
+
+def _dist_rank(rank, world, init, X, y, out_dir, spec):
+    """Phase 11(c): one rank of a gloo world on the card (spawned): the
+    conquer from zero in both modes and fit_distributed, as ``spec``
+    says."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core import DCSVMConfig, Kernel
+    from repro_torch.core import distributed as DI
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_conquer_mesh
+
+    mesh = make_conquer_mesh("i", device=spec["device"], backend="gloo",
+                             init_method=f"file://{init}", world_size=world,
+                             rank=rank)
+    kern = Kernel("rbf", gamma=spec["gamma"])
+    Xt = torch.from_numpy(X).to(mesh.device)
+    yt = torch.from_numpy(y).to(mesh.device)
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    res = {}
+    for mode in ("parallel", "replicated"):
+        cfg = DI.ConquerConfig(kernel=kern, C=spec["C"], tol=spec["tol"],
+                               max_iters=spec["rounds"], block=spec["B"],
+                               mode=mode)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        a, r, pg = DI.conquer_step(mesh, "i", cfg, Xt, yt,
+                                   torch.zeros_like(yt))
+        sync()
+        res[mode] = dict(alpha=a.cpu().numpy(), rounds=int(r),
+                         pg_max=float(pg), seconds=time.perf_counter() - t0,
+                         launches=dict(ops.LAUNCHES))
+    cfg = DCSVMConfig(kernel=kern, C=spec["C"], k=4, levels=2, m=1000,
+                      tol=spec["tol"], seed=spec["seed"],
+                      gram_budget=spec["gram_budget"])
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    a, stats = DI.fit_distributed(cfg, mesh, "i", Xt, yt,
+                                  conquer_block=spec["B"],
+                                  conquer_iters=spec["rounds"])
+    sync()
+    res["fit"] = dict(alpha=a.cpu().numpy(), stats=stats,
+                      seconds=time.perf_counter() - t0,
+                      launches=dict(ops.LAUNCHES))
+    if rank == 0:
+        np.savez(f"{out_dir}/p2.npz", **{m: r.pop("alpha")
+                                          for m, r in res.items()})
+        with open(f"{out_dir}/p2.json", "w") as f:
+            json.dump(res, f)
+    mesh.close()
+
+
+def _dist_two_ranks_start(torch, X, y, cfg, tmp):
+    """Phase 11(c): spawn the two ranks (they run beside 11(b))."""
+    import torch.multiprocessing as mp
+
+    spec = dict(device="cuda:0" if DEV == "cuda" else DEV, gamma=1.0,
+                C=cfg.C, tol=DIST_P2_TOL, rounds=DIST_P2_ROUNDS, B=DIST_B,
+                seed=SEED, gram_budget=GRAM_BUDGET)
+    ctx = mp.spawn(_dist_rank, args=(2, f"{tmp}/gloo", X.cpu().numpy(),
+                                     y.cpu().numpy(), tmp, spec),
+                   nprocs=2, join=False)
+    return ctx, spec, time.perf_counter()
+
+
+def _dist_two_ranks(torch, X, y, cfg, tmp, started):
+    """Phase 11(c): two ranks on the one card over gloo, against the dense
+    solve_with_shrinking on the card (run while the ranks finish)."""
+    import numpy as np
+
+    from repro_torch.core import solver as S
+    from repro_torch.kernels import ops
+
+    ctx, spec, t0 = started
+    kern = type(cfg.kernel)("rbf", gamma=spec["gamma"])
+    Q = ops.kernel_matrix(X, X, kern)
+    Q.mul_(y[:, None]).mul_(y[None, :])
+    t1 = time.perf_counter()
+    dense = S.solve_with_shrinking(Q, cfg.C, tol=DIST_P2_TOL,
+                                   max_iters=200_000)
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t1
+
+    def f(a):
+        a = torch.as_tensor(a, device=DEV, dtype=torch.float32)
+        return float(0.5 * torch.dot(a.double(), (Q @ a).double())
+                     - a.double().sum())
+
+    fd = f(dense.alpha)
+    while not ctx.join(timeout=900):
+        pass
+    t_all = time.perf_counter() - t0
+    alphas = dict(np.load(f"{tmp}/p2.npz"))
+    with open(f"{tmp}/p2.json") as fh:
+        res = json.load(fh)
+    out = {"dense": dict(objective=fd, iters=int(dense.iters),
+                         seconds=t_dense), "seconds": t_all}
+    for name, r in res.items():
+        fr = f(alphas[name])
+        rel = abs(fr - fd) / abs(fd)
+        extra = (f"rounds {r['rounds']}, pg_max {r['pg_max']:.3e}"
+                 if name != "fit" else
+                 f"levels {[st.get('clusters', st.get('rounds')) for st in r['stats']]}")
+        log(f"11(c) two ranks on cuda:0 over gloo, {X.shape[0]} rows, "
+            f"{name}: {extra}, objective {fr:.6f} against the dense "
+            f"{fd:.6f} ({int(dense.iters)} iterations, {t_dense:.2f}s): "
+            f"rel {rel:.3e}, {r['seconds']:.2f}s; launches {r['launches']}")
+        if not rel <= 1e-3:
+            raise AssertionError(f"11(c) {name}: rel {rel}")
+        out[name] = dict(rel=rel, seconds=r["seconds"],
+                         **{k: r[k] for k in ("rounds", "pg_max")
+                            if k in r})
+    log(f"11(c) rounds at P = 2: parallel {res['parallel']['rounds']}, "
+        f"replicated {res['replicated']['rounds']} (figures, not checks); "
+        f"{t_all:.2f}s in all")
+    return out
+
+
+def _dist_cli_start():
+    """Phase 11(d): train_svm --distributed under torch.distributed.run,
+    two ranks on the one card over gloo, started (it runs beside 11(b)
+    and (c))."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train_svm",
+         "--distributed", "--dist-backend", "gloo", "--dataset",
+         "covtype_like", "--samples", str(DIST_CLI_N)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, time.perf_counter()
+
+
+def _dist_cli(started):
+    """Phase 11(d): wait for the CLI; it must exit 0 and print its level
+    stats."""
+    proc, t0 = started
+    stdout, stderr = proc.communicate(timeout=600)
+    secs = time.perf_counter() - t0
+    lines = stdout.strip().splitlines()
+    stats = [line for line in lines if line.startswith("{'level'")]
+    if proc.returncode != 0 or not any("'level': 0" in s for s in stats) \
+            or not any(line.startswith("done in") for line in lines):
+        raise AssertionError(f"11(d) the distributed train CLI failed:\n"
+                             f"{stdout}\n{stderr[-4000:]}")
+    log(f"11(d) train_svm --distributed, 2 ranks over gloo ({secs:.1f}s "
+        "in all): " + " | ".join(line.strip() for line in lines))
+    return dict(seconds=secs, stats=stats)
+
+
+def phase_distributed(torch, Xtr, ytr, cfg, fit4):
+    """Phase 11: the distributed DC-SVM (core/distributed.py) on the card,
+    with phase 4's data, refine alpha and level-4 partition; the launches
+    of (a)'s traced conquer are its kernels' counts."""
+    import tempfile
+
+    from repro_torch.launch.mesh import make_conquer_mesh
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    out = {}
+    mesh = make_conquer_mesh("i", device=DEV, backend="nccl",
+                             init_method=f"file://{tmp}/nccl", world_size=1,
+                             rank=0)
+    X2, y2 = Xtr[:DIST_P2_N].contiguous(), ytr[:DIST_P2_N].contiguous()
+    bg = {}
+
+    def start_background():
+        # (c) and (d) check and time nothing: they run beside (a)'s checks
+        # and (b), once (a) has timed its round
+        bg["cli"] = _dist_cli_start()
+        bg["ranks"] = _dist_two_ranks_start(torch, X2, y2, cfg, tmp)
+
+    try:
+        t0 = time.perf_counter()
+        out["a"] = _dist_conquer(torch, mesh, Xtr, ytr, cfg,
+                                 fit4["refine_alpha"], start_background)
+        out["a"]["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["b"] = _dist_divide(torch, mesh, Xtr, ytr, cfg,
+                                fit4["partitions"][cfg.k ** cfg.levels])
+        out["b"]["phase_s"] = time.perf_counter() - t0
+        mesh.close()
+        torch.cuda.empty_cache()
+        out["c"] = _dist_two_ranks(torch, X2, y2, cfg, tmp, bg["ranks"])
+        out["d"] = _dist_cli(bg["cli"])
+        out["bcd_s"] = time.perf_counter() - t0
+    finally:
+        mesh.close()
+        cli = bg.get("cli")
+        if cli is not None and cli[0].poll() is None:
+            cli[0].kill()
+            cli[0].communicate()
+        for p in (bg["ranks"][0].processes if "ranks" in bg else ()):
+            if p.is_alive():
+                p.kill()
+    return out
+
+
+def distributed_alone():
+    """Phase 11 alone (``python -c "import chip_smoke as c;
+    c.distributed_alone()"``, about 5 minutes): phase 4's data and fit
+    (without its predictions and checks), then phase 11 on its refine
+    alpha and level-4 partition."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DCSVMConfig, Kernel, fit
+    from repro_torch.data import covtype_like, train_test_split
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    rng = np.random.default_rng(SEED)
+    X, y = covtype_like(rng, N_TRAIN + N_TEST)
+    Xtr, ytr, _, _ = train_test_split(rng, X, y,
+                                      test_frac=N_TEST / (N_TRAIN + N_TEST))
+    Xtr, ytr = (torch.from_numpy(a).to(DEV) for a in (Xtr, ytr))
+    cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=1.0), C=8.0, k=4, levels=4,
+                      m=1000, gram_budget=GRAM_BUDGET, seed=SEED,
+                      max_iters=MAIN_ITERS)
+    fit4 = {}
+    with _capture_fit(fit4):
+        fit(cfg, Xtr, ytr, device=DEV)
+    t0 = time.perf_counter()
+    out = phase_distributed(torch, Xtr, ytr, cfg, fit4)
+    log(f"phase distributed (11): {time.perf_counter() - t0:.2f}s")
+    log("phase 11: " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3236,9 +3778,15 @@ def main() -> int:
     del Xw, yw, Xf, yf, Xi, yi
     log(f"phase fit parity: {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
+    fit4 = {}
     launches, early, d_eq10, d_early, rows["kernel_matvec_exact"] = \
-        phase_main(torch, Xtr, ytr, Xte, yte, cfg)
+        phase_main(torch, Xtr, ytr, Xte, yte, cfg, fit4)
     log(f"phase main path: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    dist = phase_distributed(torch, Xtr, ytr, cfg, fit4)
+    del fit4
+    torch.cuda.empty_cache()
+    log(f"phase distributed (11): {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     serving, rows["kermat_serving"] = phase_serving(torch, early, Xte, yte,
                                                     d_eq10, d_early)
@@ -3331,7 +3879,8 @@ def main() -> int:
                         for key in ("graphed", "eager")})
         if name in SVM_KERNELS:
             row.update(launches_phase9a=bf_launches[name],
-                       launches_phase9b=spill_launches[name])
+                       launches_phase9b=spill_launches[name],
+                       launches_phase11a=dist["a"]["launches"][name])
         kernels.append(row)
     # the bf16 operand forms: launches from phase 9(a)'s bf16 main path;
     # cd_column_update's bf16 form is not on it (the column cache serves
@@ -3388,6 +3937,7 @@ def main() -> int:
         "spill_fit_s": spill["spill"]["fit_s"],
         "memory_fit_s": spill["memory"]["fit_s"]}, default=str))
     log("phase 10: " + json.dumps(observed, default=str))
+    log("phase 11: " + json.dumps(dist, default=str))
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -110,6 +110,25 @@ def kkt_residual(Q: torch.Tensor, alpha: torch.Tensor, C, p=-1.0
     return torch.amax(torch.abs(proj_grad(alpha, g, C)), dim=-1)
 
 
+def combination_step_size(gTd: torch.Tensor, dQd: torch.Tensor
+                          ) -> torch.Tensor:
+    """CE-PBM's combined step size (Hsieh, Si & Dhillon 2016; the
+    distributed conquer, ``core.distributed``): the exact line search of the
+    dual quadratic along the sum Δ of the P block proposals,
+
+        γ* = argmin_γ f(α + γΔ) = -g'Δ / Δ'QΔ,   clipped to [0, 1],
+
+    and 1 where Δ'QΔ <= 0 (for a PSD Q only where Δ vanishes, a no-op).  The
+    blocks touch disjoint coordinates and α, α + Δ are both feasible, so
+    every γ in [0, 1] is; each block solve decreases its own sub-model, so
+    g'Δ <= 0 and the unclipped γ* is not negative.  Takes the two reduced
+    scalars, so the distributed caller sums them over ranks instead of
+    gathering gradients."""
+    pos = dQd > 0.0
+    gamma = torch.where(pos, -gTd / torch.where(pos, dQd, 1.0), 1.0)
+    return torch.clamp(gamma, 0.0, 1.0)
+
+
 def _top_block(scores: torch.Tensor, block: int) -> torch.Tensor:
     """Indices of the ``block`` largest scores per row, ties to the lower
     index (the order of ``lax.top_k``)."""
@@ -380,10 +399,15 @@ class _Stepper:
     stream, as PyTorch asks of a capture's warm-up, then as the replay of
     one captured CUDA graph.  Every call is a real step, so a graphed loop
     gives the eager loop's results bit for bit.  Kernel launches inside
-    the graph are counted once a replay (``ops.recording``)."""
+    the graph are counted once a replay (``ops.recording``).
+    ``capture_mode`` is ``torch.cuda.graph``'s ``capture_error_mode``:
+    "thread_local" where another thread of the process may call CUDA
+    during the capture (the NCCL process group's watchdog)."""
 
-    def __init__(self, fn, device: torch.device, graph: bool):
+    def __init__(self, fn, device: torch.device, graph: bool,
+                 capture_mode: str = "global"):
         self.fn, self.device, self.graph = fn, device, graph
+        self.capture_mode = capture_mode
         self.calls, self.cuda_graph, self.per_replay = 0, None, {}
 
     def __call__(self) -> None:
@@ -403,7 +427,9 @@ class _Stepper:
             if self.cuda_graph is None:
                 self.cuda_graph = torch.cuda.CUDAGraph()
                 with ops.recording() as self.per_replay, \
-                        torch.cuda.graph(self.cuda_graph):
+                        torch.cuda.graph(
+                            self.cuda_graph,
+                            capture_error_mode=self.capture_mode):
                     self.fn()
             self.cuda_graph.replay()
             ops.add_launches(self.per_replay)

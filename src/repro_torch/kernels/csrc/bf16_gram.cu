@@ -1343,48 +1343,54 @@ extern "C" int rt_bg_ring_check(unsigned long long* out, int reset,
 }
 #endif
 
-static int bg_sms = 0;
+// Each device's own (common.cuh): its SM count, and below the occupancy
+// table; the callers' attribute flags are arrays over devices too.
+static int bg_sms[RT_MAX_DEVICES];
 
-// Once a kernel instantiation (the caller keeps the flag): allow it the
-// shared memory of the widest slice it stages.
+// Once a kernel instantiation and device (the caller keeps the flags, one a
+// device): allow it the shared memory of the widest slice it stages.  The
+// current device's ordinal into *dev.
 template <typename K>
-static int bg_smem_attr(K kernel, int smem_max, bool& done) {
-    if (done) return 0;
-    int err = 0;
-    if (bg_sms == 0) {
-        int dev;
-        err = (int)cudaGetDevice(&dev);
-        if (!err)
-            err = (int)cudaDeviceGetAttribute(
-                &bg_sms, cudaDevAttrMultiProcessorCount, dev);
+static int bg_smem_attr(K kernel, int smem_max, bool* done, int* dev) {
+    int err = rt_device(dev);
+    if (err || done[*dev]) return err;
+    if (bg_sms[*dev] == 0) {
+        err = (int)cudaDeviceGetAttribute(
+            &bg_sms[*dev], cudaDevAttrMultiProcessorCount, *dev);
         if (err) return err;
     }
     err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
-    done = err == 0;
+    done[*dev] = err == 0;
     return err;
 }
 
-// Blocks an SM holds of `kernel` at `smem` bytes (256 or 128 threads), asked
-// once a (kernel, size): a persistent grid is this many blocks an SM.
-static const void* bg_occ_fn[32];
-static int bg_occ_smem[32], bg_occ_val[32], bg_occ_len = 0;
+// Blocks an SM of device dev holds of `kernel` at `smem` bytes (256 or 128
+// threads), asked once a (kernel, size): a persistent grid is this many
+// blocks an SM.
+static const void* bg_occ_fn[RT_MAX_DEVICES][32];
+static int bg_occ_smem[RT_MAX_DEVICES][32], bg_occ_val[RT_MAX_DEVICES][32],
+    bg_occ_len[RT_MAX_DEVICES];
 template <typename K>
-static int bg_occupancy(K kernel, int threads, int smem, int* occ) {
+static int bg_occupancy(int dev, K kernel, int threads, int smem, int* occ) {
     const void* fn = (const void*)kernel;
-    for (int i = 0; i < bg_occ_len; ++i)
-        if (bg_occ_fn[i] == fn && bg_occ_smem[i] == smem) {
-            *occ = bg_occ_val[i];
+    const void** fns = bg_occ_fn[dev];
+    int* smems = bg_occ_smem[dev];
+    int* vals = bg_occ_val[dev];
+    int& len = bg_occ_len[dev];
+    for (int i = 0; i < len; ++i)
+        if (fns[i] == fn && smems[i] == smem) {
+            *occ = vals[i];
             return 0;
         }
     const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         occ, kernel, threads, smem);
     if (err) return err;
     if (*occ < 1) *occ = 1;
-    if (bg_occ_len < 32) {
-        bg_occ_fn[bg_occ_len] = fn;
-        bg_occ_smem[bg_occ_len] = smem;
-        bg_occ_val[bg_occ_len++] = *occ;
+    if (len < 32) {
+        fns[len] = fn;
+        smems[len] = smem;
+        vals[len++] = *occ;
     }
     return 0;
 }
@@ -1415,7 +1421,7 @@ static int bg_kermat_launch(const void* X, const float* xn, const void* Y,
                             int m, int dp, int sym, const unsigned char* skip,
                             float gamma, int degree, float coef0,
                             cudaStream_t stream) {
-    static bool attr[2] = {false, false};
+    static bool attr[2][RT_MAX_DEVICES];
     const long long tr = (n + BG_KM_T - 1) / BG_KM_T;
     const long long tc = (m + BG_KM_T - 1) / BG_KM_T;
     // one X slot where the launch has one row of tiles (the row form)
@@ -1426,12 +1432,13 @@ static int bg_kermat_launch(const void* X, const float* xn, const void* Y,
                        : bg_kermat_kernel<KIND, false>;
     const int smem = wide ? bg_km_smem(BG_SLICE, 1, 1, sym)
                           : bg_km_smem(bg_sw(dp), xslots, BG_KM_STAGES, sym);
-    int err = bg_smem_attr(kernel, BG_SMEM_MAX, attr[wide]);
+    int dev;
+    int err = bg_smem_attr(kernel, BG_SMEM_MAX, attr[wide], &dev);
     if (err) return err;
     int occ;
-    if ((err = bg_occupancy(kernel, 128, smem, &occ))) return err;
+    if ((err = bg_occupancy(dev, kernel, 128, smem, &occ))) return err;
     const long long tiles = (sym ? tr * (tr + 1) / 2 : tr * tc) * batch;
-    const long long slots = (long long)occ * bg_sms;
+    const long long slots = (long long)occ * bg_sms[dev];
     const int grid = (int)(tiles < slots ? tiles : slots);
     const int vec = ((uintptr_t)out & 15) == 0;
     kernel<<<grid, 128, smem, stream>>>(
@@ -1469,11 +1476,12 @@ static int bg_mv_launch(const void* X, const float* xn, const void* Z,
                         const float* zn, const float* v, float* out,
                         int batch, int n, int m, int dp, float gamma,
                         int degree, float coef0, cudaStream_t stream) {
-    static bool attr[2] = {false, false};
+    static bool attr[2][RT_MAX_DEVICES];
     const bool wide = dp > BG_MV_DP;
     auto kernel = wide ? bg_matvec_kernel<KIND, true>
                        : bg_matvec_kernel<KIND, false>;
-    int err = bg_smem_attr(kernel, BG_SMEM_MAX, attr[wide]);
+    int dev;
+    int err = bg_smem_attr(kernel, BG_SMEM_MAX, attr[wide], &dev);
     if (err) return err;
     // as many ring entries as fit beside the X slots (at most BG_MV_SMAX);
     // the wide form stages a unit's X rows whole where that leaves room
@@ -1521,11 +1529,11 @@ static int bg_mv_launch(const void* X, const float* xn, const void* Z,
     const int smem = bg_mv_smem(dp, wide, xring, S);
     const int threads = BG_MV_WARPS * 32;
     int occ;
-    if ((err = bg_occupancy(kernel, threads, smem, &occ))) return err;
+    if ((err = bg_occupancy(dev, kernel, threads, smem, &occ))) return err;
     const int R = BG_MV_WARPS * BG_MV_WR;
     const long long units = (long long)batch * ((n + R - 1) / R);
     if (units > 2147483647LL) return BG_REFUSED;
-    const long long slots = (long long)occ * bg_sms;
+    const long long slots = (long long)occ * bg_sms[dev];
     const int grid = (int)(units < slots ? units : slots);
     BG_CK(bg_ring_geom[0] = grid; bg_ring_geom[1] = S;
           bg_ring_geom[2] = xring; bg_ring_geom[3] = occ;)
@@ -1563,10 +1571,11 @@ static int bg_cd_launch(const void* X, const float* xn, const float* y,
                         const void* Xb, const float* bn, const float* w,
                         float* out, int n, int B, int dp, float gamma,
                         int degree, float coef0, cudaStream_t stream) {
-    static bool attr[2] = {false, false};
+    static bool attr[2][RT_MAX_DEVICES];
     const bool wide = dp > BG_PIPE_DP;
     auto kernel = wide ? bg_cd_kernel<KIND, true> : bg_cd_kernel<KIND, false>;
-    int err = bg_smem_attr(kernel, BG_SMEM_MAX, attr[wide]);
+    int dev;
+    int err = bg_smem_attr(kernel, BG_SMEM_MAX, attr[wide], &dev);
     if (err) return err;
     // as many resident chunks as fit beside the warps' rings
     const int nch = (B + BG_CD_CW - 1) / BG_CD_CW;
@@ -1579,10 +1588,11 @@ static int bg_cd_launch(const void* X, const float* xn, const float* y,
     }
     int occ;
     const int threads = BG_CD_WARPS * 32;
-    if ((err = bg_occupancy(kernel, threads, smem, &occ))) return err;
+    if ((err = bg_occupancy(dev, kernel, threads, smem, &occ))) return err;
     const int rows_a_block = BG_CD_WARPS * BG_CD_WR;
     const int tiles = (n + rows_a_block - 1) / rows_a_block;
-    const int grid = tiles < occ * bg_sms ? tiles : occ * bg_sms;
+    const int sms = bg_sms[dev];
+    const int grid = tiles < occ * sms ? tiles : occ * sms;
     kernel<<<grid, threads, smem, stream>>>(
         (const __nv_bfloat16*)X, xn, y, (const __nv_bfloat16*)Xb, bn, w, out,
         n, B, dp, res, gamma, degree, coef0);

@@ -247,30 +247,33 @@ cd_column_update_wide_kernel(const float* __restrict__ X,
     }
 }
 
-static int cd_sms = 0;
-static bool cd_attr = false;
-static int cd_occ_key[16], cd_occ_val[16], cd_occ_len = 0;
+// a device's own (common.cuh)
+static int cd_sms[RT_MAX_DEVICES];
+static bool cd_attr[RT_MAX_DEVICES];
+static int cd_occ_key[RT_MAX_DEVICES][16], cd_occ_val[RT_MAX_DEVICES][16],
+    cd_occ_len[RT_MAX_DEVICES];
 
-// Blocks an SM holds at this shared-memory size (the same for every kind),
-// asked once a size.
-static cudaError_t cd_occupancy(size_t smem, int* occ) {
-    for (int i = 0; i < cd_occ_len; ++i)
-        if (cd_occ_key[i] == (int)smem) { *occ = cd_occ_val[i]; return cudaSuccess; }
+// Blocks an SM of device dev holds at this shared-memory size (the same for
+// every kind), asked once a size.
+static cudaError_t cd_occupancy(int dev, size_t smem, int* occ) {
+    int* key = cd_occ_key[dev];
+    int* val = cd_occ_val[dev];
+    int& len = cd_occ_len[dev];
+    for (int i = 0; i < len; ++i)
+        if (key[i] == (int)smem) { *occ = val[i]; return cudaSuccess; }
     cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         occ, cd_column_update_kernel<KIND_RBF>, CD_THREADS, smem);
     if (err != cudaSuccess) return err;
-    if (cd_occ_len < 16) {
-        cd_occ_key[cd_occ_len] = (int)smem;
-        cd_occ_val[cd_occ_len++] = *occ;
+    if (len < 16) {
+        key[len] = (int)smem;
+        val[len++] = *occ;
     }
     return cudaSuccess;
 }
 
-static cudaError_t cd_setup() {   // once, outside the per-launch path
-    int dev;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&cd_sms, cudaDevAttrMultiProcessorCount, dev);
+static cudaError_t cd_setup(int dev) {   // once a device, outside the launch
+    cudaError_t err = cudaDeviceGetAttribute(
+        &cd_sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     void (*fns[3])(const float*, const float*, const float*, const float*,
                    const float*, float*, int, int, int, int, int, int, float,
@@ -282,7 +285,7 @@ static cudaError_t cd_setup() {   // once, outside the per-launch path
                                    CD_SMEM_MAX);
         if (err != cudaSuccess) return err;
     }
-    cd_attr = true;
+    cd_attr[dev] = true;
     return cudaSuccess;
 }
 
@@ -304,12 +307,17 @@ extern "C" int rt_cd_column_update(const float* X, const float* y,
                   || cd_smem(nch, d, stages) > CD_SMEM_MAX))
         return RTS_REFUSED;
     const size_t smem = wide ? cd_wide_smem(nch) : cd_smem(nch, d, stages);
+    int dev;
+    const int derr = rt_device(&dev);
+    if (derr) return derr;
     cudaError_t err;
-    if (!cd_attr && (err = cd_setup()) != cudaSuccess) return (int)err;
+    if (!cd_attr[dev] && (err = cd_setup(dev)) != cudaSuccess) return (int)err;
     int occ = 2;   // the streamed form: two blocks an SM (its launch bound)
-    if (!wide && (err = cd_occupancy(smem, &occ)) != cudaSuccess) return (int)err;
+    if (!wide && (err = cd_occupancy(dev, smem, &occ)) != cudaSuccess)
+        return (int)err;
+    const int sms = cd_sms[dev];
     const int ntiles = (n + CD_TM - 1) / CD_TM;
-    const int grid = ntiles < occ * cd_sms ? ntiles : occ * cd_sms;
+    const int grid = ntiles < occ * sms ? ntiles : occ * sms;
     const int vec = rts_vec(X);
     cudaStream_t s = (cudaStream_t)stream;
 #define CD_LAUNCH(K)                                                          \

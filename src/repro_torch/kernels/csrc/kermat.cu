@@ -222,14 +222,12 @@ kermat_kernel(const float* __restrict__ X, const float* __restrict__ Y,
     }
 }
 
-static bool km_attr = false;
-static int km_sms = 0;
+static bool km_attr[RT_MAX_DEVICES];   // a device's own (common.cuh)
+static int km_sms[RT_MAX_DEVICES];
 
-static cudaError_t km_setup() {   // once, outside the per-launch path
-    int dev;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&km_sms, cudaDevAttrMultiProcessorCount, dev);
+static cudaError_t km_setup(int dev) {   // once a device, outside the launch
+    cudaError_t err = cudaDeviceGetAttribute(
+        &km_sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     void (*fns[3])(const float*, const float*, const float*, float*, int, int,
                    int, int, long long, long long, int, int, float, int,
@@ -241,7 +239,7 @@ static cudaError_t km_setup() {   // once, outside the per-launch path
                                    KM_SMEM);
         if (err != cudaSuccess) return err;
     }
-    km_attr = true;
+    km_attr[dev] = true;
     return cudaSuccess;
 }
 
@@ -259,11 +257,14 @@ extern "C" int rt_kermat(const float* X, const float* Y, const float* shift,
     if (d < 1 || kind < KIND_LINEAR || kind > KIND_RBF
         || (kind == KIND_RBF && shift == nullptr) || (sym && n != m))
         return RTS_REFUSED;
+    int dev;
+    const int derr = rt_device(&dev);
+    if (derr) return derr;
     cudaError_t err;
-    if (!km_attr && (err = km_setup()) != cudaSuccess) return (int)err;
+    if (!km_attr[dev] && (err = km_setup(dev)) != cudaSuccess) return (int)err;
     const long long tr = (n + KM_T - 1) / KM_T, tc = (m + KM_T - 1) / KM_T;
     const long long total = (sym ? tr * (tr + 1) / 2 : tr * tc) * batch;
-    const long long slots = (long long)KM_BLOCKS * km_sms;
+    const long long slots = (long long)KM_BLOCKS * km_sms[dev];
     const int grid = (int)(total < slots ? total : slots);
     const int vec4 = m % 4 == 0 && ((uintptr_t)out & 15) == 0;
     cudaStream_t s = (cudaStream_t)stream;

@@ -289,9 +289,9 @@ kernel_matvec_wide_kernel(const float* __restrict__ X,
     mv_store(racc, mid, red, out, x0, n);
 }
 
-static bool mv_attr = false;
+static bool mv_attr[RT_MAX_DEVICES];   // a device's own (common.cuh)
 
-static cudaError_t mv_setup() {   // once, outside the per-launch path
+static cudaError_t mv_setup(int dev) {   // once a device, outside the launch
     void (*fns[6])(const float*, const float*, const float*, const float*,
                    float*, int, int, int, long long, long long, long long,
                    float, int, float) = {
@@ -303,7 +303,7 @@ static cudaError_t mv_setup() {   // once, outside the per-launch path
             fn, cudaFuncAttributeMaxDynamicSharedMemorySize, MV_SMEM_MAX);
         if (err != cudaSuccess) return err;
     }
-    mv_attr = true;
+    mv_attr[dev] = true;
     return cudaSuccess;
 }
 
@@ -323,8 +323,11 @@ extern "C" int rt_kernel_matvec(const float* X, const float* Z,
     const bool wide = stages == 0;
     if (!wide && (stages != 1 || mv_smem(d) > MV_SMEM_MAX)) return RTS_REFUSED;
     const size_t smem = wide ? MV_WIDE_SMEM : mv_smem(d);
+    int dev;
+    const int derr = rt_device(&dev);
+    if (derr) return derr;
     cudaError_t err;
-    if (!mv_attr && (err = mv_setup()) != cudaSuccess) return (int)err;
+    if (!mv_attr[dev] && (err = mv_setup(dev)) != cudaSuccess) return (int)err;
     dim3 grid((n + MV_TN - 1) / MV_TN, batch);
     cudaStream_t s = (cudaStream_t)stream;
 #define MV_LAUNCH(F, K)                                                       \

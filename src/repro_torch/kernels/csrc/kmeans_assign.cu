@@ -397,7 +397,7 @@ kmeans_assign_kernel(const float* __restrict__ X, const float* __restrict__ s,
     }
 }
 
-static bool ka_attr[5] = {false, false, false, false, false};
+static bool ka_attr[RT_MAX_DEVICES][5];   // a device's own (common.cuh)
 
 // The scratch's layout, in float4 (Bs, Ws) and floats (the norms): the one
 // place it is defined; the caller sizes its buffer with
@@ -423,12 +423,15 @@ static int launch(int slot, const float* X, const float* Xm, const float* W,
                   const float* s, const float* shift, float* scratch,
                   float* scores, long long* assign, int n, int m, int d, int k,
                   int kp, float gamma, cudaStream_t stream) {
-    if (!ka_attr[slot]) {
+    int dev;
+    const int derr = rt_device(&dev);
+    if (derr) return derr;
+    if (!ka_attr[dev][slot]) {
         cudaError_t err = cudaFuncSetAttribute(
             kmeans_assign_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             KaCfg<KT>::SMEM);
         if (err != cudaSuccess) return (int)err;
-        ka_attr[slot] = true;
+        ka_attr[dev][slot] = true;
     }
     const int nd = (rts_kp(d) + RTS_DC - 1) / RTS_DC;
     const int nch = (m + KA_MC - 1) / KA_MC;

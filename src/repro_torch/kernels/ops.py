@@ -3,10 +3,11 @@
 Each wrapper checks device, dtype, shape and contiguity.  For a tensor on
 the CPU it runs the kernel's plain version (``kernels.ref``); for a CUDA
 tensor it launches the kernel or raises -- there is no fallback.  Outputs
-are allocated with ``torch.empty`` and the kernels run on the current
-stream.  ``LAUNCHES`` counts, per kernel, the launches made by the
-wrappers (a plain integer, added to where the kernel is launched and
-nowhere else), so a run can show that its path went through the kernels.
+are allocated with ``torch.empty`` and the kernels run with the tensors'
+device current, on its current stream (``_launch``).  ``LAUNCHES``
+counts, per kernel, the launches made by the wrappers (a plain integer,
+added to where the kernel is launched and nowhere else), so a run can
+show that its path went through the kernels.
 A launch recorded into a CUDA graph runs only when the graph is replayed:
 ``recording()`` takes such launches out of ``LAUNCHES`` and
 ``add_launches`` puts them back once a replay.
@@ -144,8 +145,8 @@ def pack_bf16(X: torch.Tensor) -> Bf16Rows:
                         dtype=torch.float32)
     rows = X.numel() // d
     if rows:
-        _run("bf16_pack", X.data_ptr(), rows, d, dp, data.data_ptr(),
-             norms.data_ptr(), _stream(X))
+        _launch("bf16_pack", X, X.data_ptr(), rows, d, dp, data.data_ptr(),
+                norms.data_ptr())
         LAUNCHES["bf16_pack"] += 1
     return Bf16Rows(data, norms, d)
 
@@ -219,7 +220,11 @@ _REFUSED = 20000    # RTS_REFUSED of csrc/rbf_tile.cuh: nothing launched
 
 
 def _run(name: str, *args, refused: str = "") -> None:
-    err = build.kernel_fn(name)(*args)
+    _check(name, build.kernel_fn(name)(*args), refused)
+
+
+def _check(name: str, err: int, refused: str) -> None:
+    """Raise on a C entry's error code (0: launched)."""
     if err == _REFUSED:
         raise ValueError(refused or f"CUDA kernel {name} does not take these "
                                     "inputs")
@@ -231,6 +236,19 @@ def _run(name: str, *args, refused: str = "") -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch(name: str, on: torch.Tensor, *args, refused: str = "") -> None:
+    """Launch kernel ``name`` (its C entry's arguments ``args``, the stream
+    appended) for the tensor ``on``: with ``on``'s device current for the
+    call, on that device's current stream.  The C entries' caches (SM
+    counts, occupancy, shared-memory attributes) and their launches are
+    the current device's own, so this guard makes a launch on any device
+    right whatever device the calling thread has current.  The library is
+    loaded (or built) first."""
+    fn = build.kernel_fn(name)
+    with torch.cuda.device(on.device):
+        _check(name, fn(*args, _stream(on)), refused)
 
 
 def split_shift(Y: torch.Tensor, kernel) -> Optional[torch.Tensor]:
@@ -339,10 +357,10 @@ def kernel_matrix(X: torch.Tensor, Y: torch.Tensor, kernel,
         if d < 1:
             raise ValueError(f"the kermat kernel takes d >= 1, got {d}")
         shift = split_shift(Yb, kernel)
-        _run("kermat", Xb.data_ptr(), Yb.data_ptr(), _ptr(shift),
-             out.data_ptr(), b, n, m, d, n * d, m * d,
-             int(_same_tensor(X, Y)), *_params(kernel), _ptr(_skip(skip, X)),
-             _stream(X))
+        _launch("kermat", X, Xb.data_ptr(), Yb.data_ptr(), _ptr(shift),
+                out.data_ptr(), b, n, m, d, n * d, m * d,
+                int(_same_tensor(X, Y)), *_params(kernel),
+                _ptr(_skip(skip, X)))
         LAUNCHES["kermat"] += 1
     return out if X.dim() == 3 else out[0]
 
@@ -384,11 +402,11 @@ def _kermat_lowp(X, Y, kernel, cd: torch.dtype, skip) -> torch.Tensor:
     dp = Xp.data.shape[-1]
     out = torch.empty((b, n, m), device=Xp.device, dtype=torch.float32)
     if b and n and m:
-        _run("kermat_bf16", Xp.data.data_ptr(), Xp.norms.data_ptr(),
-             Yp.data.data_ptr(), Yp.norms.data_ptr(), out.data_ptr(), b, n, m,
-             dp, int(sym), _ptr(_skip(skip, Xp.data)), *_params(kernel),
-             _stream(Xp.data),
-             refused=f"kermat_bf16 refused ({b}, {n}, {m}, dp {dp})")
+        _launch("kermat_bf16", Xp.data, Xp.data.data_ptr(),
+                Xp.norms.data_ptr(), Yp.data.data_ptr(), Yp.norms.data_ptr(),
+                out.data_ptr(), b, n, m, dp, int(sym),
+                _ptr(_skip(skip, Xp.data)), *_params(kernel),
+                refused=f"kermat_bf16 refused ({b}, {n}, {m}, dp {dp})")
         LAUNCHES["kermat_bf16"] += 1
     return out if three else out[0]
 
@@ -423,10 +441,10 @@ def kernel_matvec(X: torch.Tensor, Z: torch.Tensor, v: torch.Tensor, kernel,
     if b and n:
         plan = split_tile_plan(d)
         shift = split_shift(Zb, kernel)
-        _run("kermatvec", Xb.data_ptr(), Zb.data_ptr(), vb.data_ptr(),
-             _ptr(shift), out.data_ptr(), b, n, m, d, n * d, m * d, m,
-             *plan, *_params(kernel), _stream(X),
-             refused=f"kernel_matvec refused d {d} with plan {plan}")
+        _launch("kermatvec", X, Xb.data_ptr(), Zb.data_ptr(), vb.data_ptr(),
+                _ptr(shift), out.data_ptr(), b, n, m, d, n * d, m * d, m,
+                *plan, *_params(kernel),
+                refused=f"kernel_matvec refused d {d} with plan {plan}")
         LAUNCHES["kernel_matvec"] += 1
     return out if X.dim() == 3 else out[0]
 
@@ -449,18 +467,21 @@ def _kernel_matvec_lowp(X, Z, v, kernel, cd: torch.dtype) -> torch.Tensor:
     dp = Xp.data.shape[-1]
     out = torch.empty((b, n), device=v.device, dtype=torch.float32)
     if b and n:
-        _run("kernel_matvec_bf16", Xp.data.data_ptr(), Xp.norms.data_ptr(),
-             Zp.data.data_ptr(), Zp.norms.data_ptr(), v.data_ptr(),
-             out.data_ptr(), b, n, m, dp, *_params(kernel), _stream(v),
-             refused=f"kernel_matvec_bf16 refused ({b}, {n}, {m}, dp {dp})")
+        _launch("kernel_matvec_bf16", v, Xp.data.data_ptr(),
+                Xp.norms.data_ptr(), Zp.data.data_ptr(), Zp.norms.data_ptr(),
+                v.data_ptr(), out.data_ptr(), b, n, m, dp, *_params(kernel),
+                refused=f"kernel_matvec_bf16 refused ({b}, {n}, {m}, "
+                        f"dp {dp})")
         LAUNCHES["kernel_matvec_bf16"] += 1
     return out if three else out[0]
 
 
 def q_rows(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
-           yb: torch.Tensor, kernel, compute_dtype=None) -> torch.Tensor:
-    """Signed dual rows ``Q[b, :] = y_b * (K(X_b, X) * y)``, shape (B, n)."""
-    Kb = kernel_matrix(Xb, X, kernel, compute_dtype=compute_dtype)
+           yb: torch.Tensor, kernel, compute_dtype=None,
+           skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Signed dual rows ``Q[b, :] = y_b * (K(X_b, X) * y)``, shape (B, n).
+    ``skip`` as in ``kernel_matrix`` (the rows are then not computed)."""
+    Kb = kernel_matrix(Xb, X, kernel, compute_dtype=compute_dtype, skip=skip)
     return yb[:, None] * (Kb * y[None, :])
 
 
@@ -508,11 +529,11 @@ def cd_column_update(X: torch.Tensor, y: torch.Tensor, Xb: torch.Tensor,
         shift = split_shift(Xb, kernel)
         part = out
         for (a, b), plan in zip(chunks, plans):
-            _run("cd_update", X.data_ptr(), y.data_ptr(), Xb[a:b].data_ptr(),
-                 w[a:b].data_ptr(), _ptr(shift), part.data_ptr(), n, b - a,
-                 d, *plan, *_params(kernel), _stream(X),
-                 refused=f"cd_column_update refused Xb ({b - a}, {d}) with "
-                         f"plan {plan}")
+            _launch("cd_update", X, X.data_ptr(), y.data_ptr(),
+                    Xb[a:b].data_ptr(), w[a:b].data_ptr(), _ptr(shift),
+                    part.data_ptr(), n, b - a, d, *plan, *_params(kernel),
+                    refused=f"cd_column_update refused Xb ({b - a}, {d}) "
+                            f"with plan {plan}")
             LAUNCHES["cd_column_update"] += 1
             if part is not out:
                 out.add_(part)
@@ -540,11 +561,10 @@ def _cd_column_update_lowp(X, y, Xb, w, kernel, cd: torch.dtype
     dp = Xp.data.shape[-1]
     out = torch.empty(n, device=y.device, dtype=torch.float32)
     if n:
-        _run("cd_update_bf16", Xp.data.data_ptr(), Xp.norms.data_ptr(),
-             y.data_ptr(), Bp.data.data_ptr(), Bp.norms.data_ptr(),
-             w.data_ptr(), out.data_ptr(), n, B, dp, *_params(kernel),
-             _stream(y),
-             refused=f"cd_column_update_bf16 refused ({n}, {B}, dp {dp})")
+        _launch("cd_update_bf16", y, Xp.data.data_ptr(), Xp.norms.data_ptr(),
+                y.data_ptr(), Bp.data.data_ptr(), Bp.norms.data_ptr(),
+                w.data_ptr(), out.data_ptr(), n, B, dp, *_params(kernel),
+                refused=f"cd_column_update_bf16 refused ({n}, {B}, dp {dp})")
         LAUNCHES["cd_column_update_bf16"] += 1
     return out
 
@@ -602,10 +622,10 @@ def kmeans_assign(X: torch.Tensor, Xm: torch.Tensor, W: torch.Tensor,
         shift = Xm.mean(dim=0) if m else torch.zeros(d, device=X.device)
         floats = _assign_scratch(m, d, kp, group)
         scratch = torch.empty(floats, device=X.device, dtype=torch.float32)
-        _run("kmeans_assign", X.data_ptr(), Xm.data_ptr(), W.data_ptr(),
-             s.data_ptr(), shift.data_ptr(), scratch.data_ptr(), floats,
-             scores.data_ptr(), assign.data_ptr(), n, m, d, k, kp, group,
-             float(gamma), _stream(X))
+        _launch("kmeans_assign", X, X.data_ptr(), Xm.data_ptr(),
+                W.data_ptr(), s.data_ptr(), shift.data_ptr(),
+                scratch.data_ptr(), floats, scores.data_ptr(),
+                assign.data_ptr(), n, m, d, k, kp, group, float(gamma))
         LAUNCHES["kmeans_assign"] += 1
     return assign, scores
 
@@ -690,9 +710,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"bfloat16, got {q.dtype}")
     o = torch.empty((B, Sq, Hq, hd), device=q.device, dtype=q.dtype)
     if B and Sq and Hq:
-        _run("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             o.data_ptr(), B, Sq, Sk, Hq, Hkv, hd, *strides, int(causal),
-             int(q_offset), 1.0 / math.sqrt(hd),
-             int(q.dtype == torch.bfloat16), _stream(q))
+        _launch("flash_attention", q, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), B, Sq, Sk, Hq, Hkv, hd, *strides,
+                int(causal), int(q_offset), 1.0 / math.sqrt(hd),
+                int(q.dtype == torch.bfloat16))
         LAUNCHES["flash_attention"] += 1
     return o

@@ -14,6 +14,10 @@
         --compute-dtype bfloat16 --host-spill --gram-budget 268435456
     PYTHONPATH=src python -m repro_torch.launch.train_svm --trace fit.json \\
         --trace-cap 4096 --stats-json stats.json
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 2 -m repro_torch.launch.train_svm --distributed \\
+        --samples 4000 [--dist-backend gloo] [--dist-mode replicated] \\
+        [--dist-cache 2048]
 
 Tasks: ``svc`` (hinge C-SVC), ``weighted-svc`` (box ``c_i = C * w_{y_i}``,
 ``--class-weight POS[,NEG]``), ``svr`` (epsilon-insensitive regression,
@@ -33,6 +37,15 @@ chrome://tracing) and prints its table; ``--trace-cap N`` records the
 last N iterations of the level-0 solve into a device ring
 (``DCSVMConfig.trace``); ``--stats-json PATH`` writes every level's stats,
 the convergence trace among them.
+
+``--distributed`` runs ``core.distributed.fit_distributed_model`` (svc,
+weighted-svc and svr): every level's clusters and the conquer's rows
+sharded over the ranks, the conquer by parallel block minimisation
+(``--dist-mode replicated``: one global block a round; ``--dist-cache N``:
+a row cache of N slots a rank).  Under ``python -m torch.distributed.run``
+each rank takes its own GPU (``--dist-backend nccl``, the default on
+CUDA) or shares the card (``gloo``, the default on the CPU); without it
+the world is one process.  Only rank 0 prints and writes files.
 """
 from __future__ import annotations
 
@@ -48,11 +61,13 @@ from repro_torch.core import (DCSVMConfig, EpsilonSVR, Kernel, NuSVC,
                               OneClassSVM, WeightedCSVC, accuracy, f1, fit,
                               mae, mse, precision, predict_early,
                               predict_exact, recall)
+from repro_torch.core.distributed import fit_distributed_model
 from repro_torch.data import (checkerboard, covtype_like, friedman1,
                               gaussian_mixture, gaussian_mixture_imbalanced,
                               gaussian_with_outliers, sinc1d,
                               stratified_split, train_test_split,
                               webspam_like)
+from repro_torch.launch.mesh import make_conquer_mesh
 from repro_torch.obs.spans import SpanTracer
 
 DATASETS = {
@@ -100,7 +115,10 @@ def main(argv=None) -> None:
                     choices=["svc", "weighted-svc", "svr", "nu-svc",
                              "one-class"])
     ap.add_argument("--dataset", default="gaussian", choices=sorted(DATASETS))
-    ap.add_argument("--n", type=int, default=8000)
+    ap.add_argument("--n", "--samples", dest="n", type=int, default=8000,
+                    help="points generated (--samples under "
+                         "torch.distributed.run, whose parser takes --n "
+                         "for an abbreviation of its own options)")
     ap.add_argument("--C", type=float, default=4.0)
     ap.add_argument("--gamma", type=float, default=8.0)
     ap.add_argument("--kernel", default="rbf", choices=["rbf", "poly", "linear"])
@@ -123,6 +141,23 @@ def main(argv=None) -> None:
     ap.add_argument("--block", type=int, default=0)
     ap.add_argument("--early", type=int, default=0,
                     help="stop at this level and use early prediction")
+    ap.add_argument("--distributed", action="store_true",
+                    help="shard the divide/conquer over the ranks of a "
+                         "torch.distributed world (svc, weighted-svc and "
+                         "svr; a world of one without torch.distributed."
+                         "run)")
+    ap.add_argument("--dist-mode", default="parallel",
+                    choices=["parallel", "replicated"],
+                    help="conquer scheme: 'parallel' = P simultaneous local "
+                         "block solves per communication round (CE-PBM), "
+                         "'replicated' = one global block per round")
+    ap.add_argument("--dist-cache", type=int, default=0,
+                    help="per-rank kernel-row LRU capacity for the "
+                         "parallel conquer (0 = recompute rows on the fly)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend (default: nccl on "
+                         "cuda, gloo on cpu; gloo lets several ranks share "
+                         "one card)")
     ap.add_argument("--compute-dtype", default="float32",
                     choices=["float32", "bfloat16"],
                     help="Gram product-operand precision (accumulation stays "
@@ -164,6 +199,11 @@ def main(argv=None) -> None:
                  f"got --dataset {args.dataset}")
     if args.nu_bias and args.task != "nu-svc":
         ap.error("--nu-bias applies to --task nu-svc only")
+    if args.distributed and args.task in ("nu-svc", "one-class"):
+        raise SystemExit(
+            "--distributed covers the box-constrained duals (svc, "
+            "weighted-svc, svr); the equality-constrained tasks "
+            f"({args.task}) need the pairwise engine -- drop --distributed")
     task = None
     if args.task == "weighted-svc":
         w_pos, w_neg = parse_class_weight(args.class_weight)
@@ -196,6 +236,11 @@ def main(argv=None) -> None:
               f"n_sv={st['n_sv']} cluster_t={st.get('cluster_time', 0):.1f}s "
               f"train_t={st['train_time']:.1f}s{counters}", flush=True)
 
+    mesh = None
+    if args.distributed:
+        mesh = make_conquer_mesh("i", device=args.device,
+                                 backend=args.dist_backend)
+    lead = mesh is None or mesh.rank == 0      # prints and writes files
     tracer = None
     span_ctx = contextlib.nullcontext()
     if args.trace:
@@ -203,9 +248,26 @@ def main(argv=None) -> None:
         span_ctx = tracer.activate()
     t0 = time.perf_counter()
     with span_ctx:
-        model = fit(cfg, Xtr, None if args.task == "one-class" else ytr,
-                    callback=cb, task=task, device=args.device)
+        if mesh is None:
+            model = fit(cfg, Xtr, None if args.task == "one-class" else ytr,
+                        callback=cb, task=task, device=args.device)
+        else:
+            model = fit_distributed_model(
+                cfg, mesh, "i", Xtr, ytr, task=task,
+                conquer_block=max(args.block, 64), mode=args.dist_mode,
+                cache_cap=args.dist_cache)
     t_train = time.perf_counter() - t0
+    if mesh is not None:
+        mesh.close()
+        if lead:
+            group = mesh.backend or "no process group"
+            print(f"distributed: {mesh.size} ranks ({group}), device "
+                  f"{mesh.device}", flush=True)
+            for st in model.level_stats:
+                print({k: v for k, v in st.items() if k != "trace"},
+                      flush=True)
+    if not lead:
+        return
     if tracer is not None:
         tracer.write_chrome_trace(args.trace)
         print(f"chrome trace -> {args.trace}", flush=True)

@@ -13,9 +13,10 @@ and leaves the rest NaN:
 
 - box CD loops:   pg_max, objective, n_free        (+ cache_hits delta)
 - equality loops: pg_max (max violation), objective, n_free
-
-(The reference's CE-PBM conquer also fills ``gamma``; the port has no
-distributed conquer yet.)
+- the distributed conquer (``core.distributed``): the round's pg_max, the
+  objective and n_free after it (summed over ranks, so every rank's ring
+  is the same), the combination step ``gamma`` (NaN in the replicated
+  mode, which has none) and the cached path's cache_hits delta
 
 Leading dimensions are a batch of problems (the reference ``vmap``s its
 solvers): each problem has its own ring and count, and ``trace_record``'s

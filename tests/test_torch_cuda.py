@@ -1346,3 +1346,132 @@ def test_cuda_engine_on_an_explicit_device(cuda_device, monkeypatch,
             top = np.sort(alone, axis=1)
             clear = top[:, -1] - top[:, -2] > 1e-3
             np.testing.assert_array_equal(pred[clear], ap.cpu()[clear])
+
+
+@pytest.mark.cuda
+def test_cuda_every_kernel_from_a_fresh_thread_on_an_explicit_device(
+        cuda_device, monkeypatch):
+    """Every kernel launched on explicit cuda:0 tensors from a fresh thread
+    whose current device was never set: each C entry runs with the
+    tensors' device current (the wrappers' device guard), and every
+    output is bit for bit the main thread's.  One card cannot show a
+    second device; the per-device caches of the C libraries are keyed by
+    the current device's ordinal."""
+    import threading
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.uniform(-0.7, 0.7, shape).astype(
+            np.float32)).to(dev, dtype)
+
+    kern = Kernel("rbf", gamma=0.5)
+    X, Z, Xc = t(300, 54), t(200, 54), t(4, 96, 54)
+    v, y, w = t(200), torch.sign(t(300)), t(64)
+    W, s = t(200, 7).abs(), t(7).abs()
+    q, k, vv = t(1, 96, 2, 64), t(1, 96, 2, 64), t(1, 96, 2, 64)
+    qb, kb, vb = (a.to(torch.bfloat16) for a in (q, k, vv))
+    bf = dict(compute_dtype="bfloat16")
+    calls = {
+        "kermat": lambda: ops.kernel_matrix(X, Z, kern),
+        "kermat symmetric batched": lambda: ops.kernel_matrix(Xc, Xc, kern),
+        "kernel_matvec": lambda: ops.kernel_matvec(X, Z, v, kern),
+        "cd_column_update": lambda: ops.cd_column_update(X, y, Z[:64], w,
+                                                         kern),
+        "kmeans_assign": lambda: ops.kmeans_assign(X, Z, W, s, 0.5),
+        "bf16_pack": lambda: ops.pack_bf16(X).data,
+        "kermat_bf16": lambda: ops.kernel_matrix(X, Z, kern, **bf),
+        "kernel_matvec_bf16": lambda: ops.kernel_matvec(X, Z, v, kern, **bf),
+        "cd_column_update_bf16": lambda: ops.cd_column_update(
+            X, y, Z[:64], w, kern, **bf),
+        "flash_attention bf16": lambda: ops.flash_attention(qb, kb, vb),
+        "flash_attention f32": lambda: ops.flash_attention(q, k, vv),
+    }
+    main = {name: fn() for name, fn in calls.items()}
+    torch.cuda.synchronize(dev)
+    seen, got, errors = [], {}, []
+    real = build.kernel_fn
+
+    def kernel_fn(name):
+        fn = real(name)
+
+        def call(*args):
+            seen.append((name, torch.cuda.current_device()))
+            return fn(*args)
+        return call
+
+    def run():
+        try:
+            for name, fn in calls.items():
+                got[name] = fn()
+            torch.cuda.synchronize(dev)
+        except Exception as exc:      # re-raised in the test's thread
+            errors.append(exc)
+
+    monkeypatch.setattr(build, "kernel_fn", kernel_fn)
+    worker = threading.Thread(target=run, name="fresh")
+    worker.start()
+    worker.join()
+    if errors:
+        raise errors[0]
+    assert {name for name, _ in seen} >= {
+        "kermat", "kermatvec", "cd_update", "kmeans_assign", "bf16_pack",
+        "kermat_bf16", "kernel_matvec_bf16", "cd_update_bf16",
+        "flash_attention"}
+    assert {d for _, d in seen} == {dev.index}
+    for name, want in main.items():
+        want = want if isinstance(want, tuple) else (want,)
+        out = got[name] if isinstance(got[name], tuple) else (got[name],)
+        for a, b in zip(want, out):
+            assert a.device == dev and torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,cache", [("parallel", 0), ("parallel", 512),
+                                        ("replicated", 0)])
+def test_cuda_conquer_kernels_against_plain(cuda_device, mode, cache):
+    """The distributed conquer at one rank (a world of one) on 2,048
+    covtype_like rows through the kernels against the same conquer through
+    the plain versions on the card, over its first 100 rounds (of about
+    180 to tol 1e-3: converged runs part at f32 near-ties of the top-B
+    scores and stop 1-3 rounds apart): equal rounds, the objective to 1e-4
+    relative; one kernel_matvec (the initial gradient) and, uncached, one
+    cd_column_update a round."""
+    from repro_torch.core import distributed as DI
+    from repro_torch.data import covtype_like
+    from repro_torch.launch.mesh import make_conquer_mesh
+
+    X, y = covtype_like(np.random.default_rng(0), 2048)
+    X = torch.from_numpy(X).to(cuda_device)
+    y = torch.from_numpy(y).to(cuda_device)
+    mesh = make_conquer_mesh("i", device=cuda_device)
+    kern = Kernel("rbf", gamma=1.0)
+    runs = {}
+    for use_kernels in (True, False):
+        cfg = DI.ConquerConfig(kernel=kern, C=8.0, tol=1e-3, max_iters=100,
+                               block=64, mode=mode, cache_cap=cache,
+                               use_kernels=use_kernels)
+        ops.reset_launches()
+        runs[use_kernels] = DI.conquer_step(mesh, "i", cfg, X, y,
+                                            torch.zeros_like(y))
+        torch.cuda.synchronize()
+        if use_kernels:
+            launches = dict(ops.LAUNCHES)
+    Xd = X.double()
+    Q = (y.double()[:, None] * y.double()[None, :]) * torch.exp(
+        -((Xd[:, None, :] - Xd[None, :, :]) ** 2).sum(-1))
+
+    def f(a):
+        a = a.double()
+        return float(0.5 * a @ Q @ a - a.sum())
+
+    (ak, rk, pk), (ap, rp, pp) = runs[True], runs[False]
+    assert int(rk) == int(rp), (int(rk), int(rp))
+    assert abs(f(ak) - f(ap)) <= 1e-4 * abs(f(ap)), (f(ak), f(ap))
+    assert launches["kernel_matvec"] == 1
+    steps, rounds = launches["cd_column_update"], int(rk)
+    if cache:
+        assert launches["kermat"] == rounds and steps == 0
+    else:
+        assert steps == rounds == 100
