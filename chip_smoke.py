@@ -6,9 +6,9 @@
 Run from the root of a checkout on a machine with one GPU and the CUDA
 toolkit.  It builds the hand-written kernels from src/repro_torch/kernels/
 csrc/ with nvcc (into build/repro_torch_kernels/; bf16_gram.cu also as
-its ring check build) and runs eleven phases (phase 11 runs after phase
-4, phase 10 after phase 6, phases 8 and 9 before phase 7, 9(a) before
-8(b)):
+its ring check build) and runs twelve phases (phases 11 and 12 run after
+phase 4, phase 10 after phase 6, phases 8 and 9 before phase 7, 9(a)
+before 8(b)):
 
 1. environment: card, power limit, versions, kernel build time and each
    kernel's registers and spills (ptxas -v); TF32 off;
@@ -43,12 +43,15 @@ its ring check build) and runs eleven phases (phase 11 runs after phase
    Gram-free engines), n = 8192, for C-SVC on covtype_like (d = 54, gamma
    1) and webspam_like (d = 254, gamma 0.5, C 8, tol 1e-5: the streamed
    forms), weighted C-SVC on gaussian_mixture_imbalanced, epsilon-SVR on
-   friedman1 (dedup view; 4,096 rows, a cut from 8,192), one-class SVM at
+   friedman1 (dedup view; 1,024 rows, a cut from 8,192, with
+   full_gram_threshold 1,024 for its dual of 2,048), one-class SVM at
    eq_block_size 1 and 64 and
-   nu-SVC with bias at eq_block_size 128 (a 512-column rank-2B update),
-   and C-SVC on covtype_like with col_cache_cap 2048, with
-   compute_dtype="bfloat16" and with host_spill (a gram_budget of four
-   panels): same objective to 1e-4 relative, rho to 1e-4 of 1 + |rho|,
+   nu-SVC with bias at eq_block_size 128 (a 512-column rank-2B update;
+   these two blocked fits on 4,096 rows, level 0 Gram-free above 2,048),
+   and C-SVC on covtype_like with col_cache_cap 2048 and with
+   compute_dtype="bfloat16" (the host_spill pair went for time: 9(b)
+   holds the spill path against the in-memory fit, 10(b) its graphed
+   panel step): same objective to 1e-4 relative, rho to 1e-4 of 1 + |rho|,
    the same predictions, the kernels of each level 0 launched by the
    kernel fit, a cached fit's hits + misses = iterations x 64; the first
    kernel fit again with DCSVMConfig(trace=4096): the same alphas bit for
@@ -89,6 +92,25 @@ its ring check build) and runs eleven phases (phase 11 runs after phase
    card (run meanwhile), the rounds at P = 2 printed; (d) train_svm
    --distributed under torch.distributed.run, two ranks over gloo,
    covtype_like n = 4,000;
+12. the paper's comparison solvers (repro_torch.baselines) on phase 4's
+   data, each printing its seconds, test accuracy (above the larger
+   class's share), SV count and launches by kernel: (a) train_exact on
+   the whole split, its Gram-free branch (the graphed level-0 engine, one
+   cd_column_update an iteration), traced, the objective never rising,
+   64 iterations from phase 4's refine alpha against the plain versions
+   (objective, 1e-4 relative; where the objective still falls fast the
+   paths part at near-ties of the top-B scores), decisions on every query, the first 4,096 held to the plain
+   versions (2e-5 of 1 + sum_j |K_ij w_j|); (b) train_cascade at levels 3
+   on 65,536 rows, survivors by level, the first leaf's Gram (kermat's
+   2e-5) and solve (objective, 1e-4) against the plain versions; (c)
+   LLSVM (128 landmarks; K_bb and K(X, landmarks) held at kermat's 2e-5)
+   and RFF (512 features; no kernel launched) on the same rows; (d) LTPU
+   (128 units) on the whole split, Phi held at 2e-5; (e) checkpoints:
+   phase 4's callback also saves every level's alpha through
+   ckpt.CheckpointManager, each step restored bit for bit against a copy,
+   and train_svm --n 20000 --levels 3 --ckpt-dir runs beside (a)-(d): it
+   exits 0, its manifest keeps the last 3 of its 4 steps, each alpha
+   finite, in [0, C], one entry a training row;
 5. serving phase 4's early model (level-1 alpha, level-1 partition): a
    round-trip export (every SV, BCM) served exact and early (all queries)
    and bcm (the first 16,384) through serve_batch in 4,096-row buckets,
@@ -200,6 +222,13 @@ MAIN_ITERS = 30_000
 GRAM_BUDGET = 16 * 2 ** 30              # bytes for a level's cluster Grams
 FIT_N, FIT_N_TEST = 8192, 2048          # phase 3
 FIT_FULL_GRAM = 4096                    # phase 3: level 0 Gram-free above it
+# phase 3's blocked equality fits (one-class at eq_block_size 64, nu-SVC
+# with bias at 128) on FIT_N_EQ rows, level 0 Gram-free above
+# FIT_FULL_GRAM_EQ: cut from 8,192 rows (50.6 s and 76.6 s a pair on an
+# NVIDIA H100 80GB HBM3 at 700 W, most of it their sub-QPs' sequential
+# pair steps; the smoke read 1,176.0 s with phase 12); 10(b) holds the
+# blocked step graphed against eager
+FIT_N_EQ, FIT_FULL_GRAM_EQ = 4096, 2048
 ACC_FLOOR = 0.75                        # least exact and early test accuracy
 EARLY_CHECK_N = 2048                    # queries in the early kernel-vs-plain check
 EARLY_TOL = 2e-5                        # of 1 + sum_j K(x, x_j) |beta_j|
@@ -252,13 +281,15 @@ SVR_PRED_TOL = 1e-2                     # phase 3: kernel vs plain SVR predictio
 # level 0 ran to the cap, about 2 ms an iteration), and from 10,000 when
 # phase 5(b) came (the whole smoke read 1,147.5 s on a slow host).  Phase 3's SVR fit keeps
 # 30,000 (at 10,000 its kernel and plain fits stopped 2e-4 apart in
-# objective) and is cut in scale instead, to FIT_N_SVR rows (a dual of
-# 6,144, above FIT_FULL_GRAM, so level 0 stays Gram-free and runs the
-# kernels; at 8,192 rows its level 0 took 28,841-30,000 iterations, 155 s
-# for the pair; at 4,096, 17,621-18,578 and 104.5 s, with the whole smoke
-# at 1,181 s of its 1,200)
+# objective) and is cut in scale instead, to FIT_N_SVR rows with level 0
+# Gram-free above FIT_FULL_GRAM_SVR, so it runs the kernels (at 8,192 rows
+# its level 0 took 28,841-30,000 iterations, 155 s for the pair; at
+# 4,096, 17,621-18,578 and 104.5 s, with the whole smoke at 1,181 s of its
+# 1,200; at 3,072, 13,005-13,392 and 80.2 s, the smoke at 1,176.0 s with
+# phase 12, on an NVIDIA H100 80GB HBM3 at 700 W; 8(b) holds SVR at full
+# width)
 SVR_ITERS = 5_000
-FIT_N_SVR = 3072
+FIT_N_SVR, FIT_FULL_GRAM_SVR = 1024, 1024
 PRED_MARGIN = 1e-3                      # phase 3: labels compared off |f| < this
 SVM_KERNELS = ("kermat", "kernel_matvec", "cd_column_update", "kmeans_assign")
 SOURCES = {"kermat": ("src/repro_torch/kernels/csrc/kermat.cu",
@@ -304,7 +335,6 @@ XS_D, XS_N = 600, 16_384
 RING_LAUNCHES, RING_CHECK_LAUNCHES = 300, 50
 TRACE_N = 4096
 TRACE_COST_ITERS = 12
-PHASE3_SPILL_BUDGET = 2048 * FIT_N * 4  # phase 3's spill fit: 4 panels
 MAIN: dict = {}                         # phase 4's numbers, for phase 9(a)
 # phase 11, the distributed DC-SVM: (a) the conquer at the split, one rank
 # over NCCL, B = 64, warm-started from phase 4's refine alpha, up to
@@ -337,6 +367,25 @@ DIST_RISE = 1e-5                         # of |objective|: f32 ring noise
 # path parted at round 0 (its initial gradient's sums) and the cached one
 # at round 19 (kermat's rows, no mean shift): 9.0e-5, 2.7e-4, 6.4e-4
 DIST_PATH_TOL = 1e-4
+# phase 12, the comparison solvers on phase 4's split: (a) train_exact on
+# all 464,810 rows (its Gram-free branch) capped at CMP_EXACT_ITERS
+# iterations (cut from its default 300,000; about 2 ms an iteration),
+# CMP_HOLD from phase 4's refine alpha against the plain versions, decisions on every query, the
+# first CMP_DEC_CHECK held to the plain versions; (b) train_cascade at
+# CMP_CASCADE_LEVELS levels on the first CMP_N rows (8 leaves of 8,192, a
+# 268 MB Gram each), each solve capped at CMP_CASCADE_ITERS (cut from
+# 100,000: the eager greedy CD takes 0.2-0.35 ms a step); (c) LLSVM
+# (CMP_LANDMARKS landmarks) and RFF (CMP_FEATURES features) on the same
+# CMP_N rows (their dual Q is n x n: 17 GB here, 864 GB at the split),
+# the block CD capped at CMP_BLOCK_ITERS outer iterations (cut from
+# 200,000: about 1,300 eager launches each); (d) LTPU (CMP_UNITS units)
+# on the whole split; (e) train_svm --ckpt-dir at n = CMP_CLI_N, levels
+# CMP_CLI_LEVELS, in the background
+CMP_EXACT_ITERS, CMP_HOLD, CMP_DEC_CHECK = 2000, 64, 4096
+CMP_N, CMP_CASCADE_LEVELS, CMP_CASCADE_ITERS = 65_536, 3, 5000
+CMP_LANDMARKS, CMP_FEATURES, CMP_UNITS = 128, 512, 128
+CMP_BLOCK_ITERS = 300
+CMP_CLI_N, CMP_CLI_LEVELS = 20_000, 3
 ASSIGN_TOL = 1e-4                       # kmeans_assign scores (absolute)
 ASSIGN_TIE = 2e-4                       # gap below which an argmin may differ
 SERVE_BUCKET = 4096                     # query rows a serving call
@@ -788,9 +837,9 @@ def phase_fit_parity(torch, datasets):
 
     fit_launches = {}
     for name, kern, C, tol, X, y, Xte, yte, task, extra in datasets:
-        cfg = DCSVMConfig(kernel=kern, C=C, k=4, levels=2, m=1000,
-                          full_gram_threshold=FIT_FULL_GRAM, tol=tol,
-                          seed=SEED, **extra)
+        cfg = DCSVMConfig(kernel=kern, C=C, k=4, levels=2, m=1000, tol=tol,
+                          seed=SEED, **{"full_gram_threshold": FIT_FULL_GRAM,
+                                        **extra})
         out = {}
         for use in (True, False):
             c = dataclasses.replace(cfg, use_kernels=use)
@@ -957,7 +1006,10 @@ def phase_main(torch, Xtr, ytr, Xte, yte, cfg, fit4=None):
     """Phase 4: the main path, with every launch counted; ``fit4`` (a
     dict) receives its refine alpha and partitions for phase 11."""
     import dataclasses
+    import shutil
+    import tempfile
 
+    from repro_torch.ckpt import CheckpointManager
     from repro_torch.core import (accuracy, decision_early, decision_exact,
                                   fit, objective_value)
     from repro_torch.core.kkmeans import assign_points
@@ -965,10 +1017,20 @@ def phase_main(torch, Xtr, ytr, Xte, yte, cfg, fit4=None):
     from repro_torch.obs.spans import SpanTimer
 
     level1_alpha = {}
+    # 12(e): every level's alpha saved as the train CLI saves it (step
+    # levels - level + 1, written on the manager's thread), beside a copy
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    mgr = CheckpointManager(ckpt_dir, keep=cfg.levels + 1)
+    copies = {}
 
     def cb(level, alpha, st):
         if level == 1:
             level1_alpha["alpha"] = alpha.clone()
+        step = cfg.levels - level + 1
+        copies[step] = (level, alpha.clone())
+        mgr.save(step, {"alpha": alpha,
+                        "level": torch.tensor(level, dtype=torch.int32)},
+                 blocking=False)
         extra = ""
         if level == 0:
             extra = f" iters={st['iters']} pg_max={st['pg_max']:.3e}"
@@ -984,6 +1046,8 @@ def phase_main(torch, Xtr, ytr, Xte, yte, cfg, fit4=None):
     with timer.activate(), _capture_fit({} if fit4 is None else fit4):
         model = fit(cfg, Xtr, ytr, callback=cb, device=DEV)
     t_fit = time.perf_counter() - t0
+    check_checkpoints(torch, mgr, copies)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     obj = float(objective_value(cfg, model.X, model.y, model.alpha))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1061,6 +1125,28 @@ def phase_main(torch, Xtr, ytr, Xte, yte, cfg, fit4=None):
                              f"{it0} level-0 iterations")
     return launches, early, d_level1, d_early, exact_matvec_case(torch, model,
                                                                  Xte)
+
+
+def check_checkpoints(torch, mgr, copies):
+    """12(e), on phase 4's fit: every kept step restores, on the card,
+    bit for bit the alpha the callback copied, with its level."""
+    t0 = time.perf_counter()
+    mgr.wait()
+    steps = mgr.steps()
+    for s in steps:
+        tree = mgr.restore({"alpha": torch.zeros(0),
+                            "level": torch.zeros((), dtype=torch.int32)},
+                           step=s, device=DEV)
+        level, alpha = copies[s]
+        if not (torch.equal(tree["alpha"], alpha)
+                and int(tree["level"]) == level):
+            raise AssertionError(f"12(e) step {s} does not restore the "
+                                 f"level-{level} alpha bit for bit")
+    log(f"12(e) phase 4's checkpoints: steps {steps} (levels "
+        f"{[copies[s][0] for s in steps]}) restore bit for bit "
+        f"({time.perf_counter() - t0:.2f}s after the fit)")
+    if steps != sorted(copies):
+        raise AssertionError(f"12(e) steps {steps} of {sorted(copies)}")
 
 
 def exact_matvec_case(torch, model, Xq):
@@ -2839,7 +2925,10 @@ def phase_bf16_main(torch, Xtr, ytr, Xte, yte, cfg, main):
     then kernel_matvec's bf16 form at decision_exact's shape.  Returns
     (launches, row of that case)."""
     import dataclasses
+    import shutil
+    import tempfile
 
+    from repro_torch.ckpt import CheckpointManager
     from repro_torch.core import (accuracy, decision_early, decision_exact,
                                   fit, objective_value)
     from repro_torch.kernels import ops, ref
@@ -3648,6 +3737,362 @@ def phase_distributed(torch, Xtr, ytr, cfg, fit4):
     return out
 
 
+def _cmp_line(torch, name, secs, yte, dec, launches, n_sv=None, extra=""):
+    """One comparison solver's line: seconds, test accuracy, SV count and
+    launches by kernel; its accuracy must exceed the larger class's share
+    of the queries."""
+    acc = float((torch.sign(dec) == yte).float().mean())
+    share = max(float((yte > 0).float().mean()),
+                float((yte < 0).float().mean()))
+    used = {k: v for k, v in launches.items() if v}
+    log(f"12 {name}: seconds={secs:.2f} test_acc={acc:.4f} (larger class "
+        f"{share:.4f}) n_sv={n_sv} launches {json.dumps(used)}{extra}")
+    if dec.shape != yte.shape or not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"12 {name}: decisions malformed")
+    if not acc > share:
+        raise AssertionError(f"12 {name}: accuracy {acc} not above the "
+                             f"larger class's share {share}")
+    return dict(seconds=secs, acc=acc, n_sv=n_sv, launches=launches)
+
+
+def _kermat_err(torch, X, Y, kern) -> float:
+    """kermat's K(X, Y) against its plain version, of 1 + |plain|."""
+    from repro_torch.core.kernels import gram
+
+    k = gram(kern, X, Y, use_kernels=True)
+    p = gram(kern, X, Y, use_kernels=False)
+    return float(((k - p).abs() / (1.0 + p.abs())).max())
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _cmp_exact(torch, Xtr, ytr, Xte, yte, cfg, warm):
+    """12(a): train_exact on the whole split, its Gram-free branch (the
+    graphed level-0 engine), traced: the objective never rises, one
+    cd_column_update an iteration; CMP_HOLD iterations from ``warm``
+    (phase 4's refine alpha) against the plain versions; decision on every
+    query, the first CMP_DEC_CHECK held to the plain versions."""
+    import dataclasses
+
+    from repro_torch.baselines import train_exact
+    from repro_torch.core import objective_value
+    from repro_torch.core.solver import SYNC_EVERY
+    from repro_torch.kernels import ops
+    from repro_torch.obs.trace import trace_fetch, trace_init
+
+    kern, C = cfg.kernel, cfg.C
+    ops.reset_launches()
+    m = train_exact(Xtr, ytr, kern, C, max_iters=CMP_EXACT_ITERS, device=DEV,
+                    trace=trace_init(CMP_EXACT_ITERS, device=DEV))
+    fit_launches = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    dec = m.decision(Xte)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    ring = trace_fetch(m.trace)["objective"]
+    rise = max([0.0] + [b - a for a, b in zip(ring, ring[1:])])
+    # CMP_HOLD iterations through the kernels and the plain versions from
+    # phase 4's refine alpha (DC-SVM's warm start of this solver), both
+    # objectives by the one kernel_matvec.  Where the objective still
+    # falls fast the two paths part at f32 near-ties of the top-B scores
+    # and drift apart: from zero (every |projected gradient| 1) 5.3e-2
+    # after 64 iterations, from the traced run's alpha 2.8e-4 (NVIDIA H100
+    # 80GB HBM3, 700 W)
+    held = {use: float(objective_value(cfg, Xtr, ytr, train_exact(
+        Xtr, ytr, kern, C, max_iters=CMP_HOLD, alpha0=warm, device=DEV,
+        use_kernels=use, grad_chunks=DIST_GRAD_CHUNKS).alpha))
+        for use in (True, False)}
+    obj_rel = _rel(held[True], held[False])
+    Xq = Xte[:CMP_DEC_CHECK]
+    plain = dataclasses.replace(m, use_kernels=False)
+    want = plain.decision(Xq).double()
+    # sum_j K_ij |w_j| (rbf: K > 0, alpha >= 0)
+    mag = dataclasses.replace(plain, y=torch.ones_like(m.y)).decision(Xq)
+    dec_err = float(((dec[:CMP_DEC_CHECK].double() - want).abs()
+                     / (1.0 + mag.double())).max())
+    out = _cmp_line(
+        torch, "train_exact (Gram-free, the whole split)",
+        m.train_time + t_dec, yte, dec, launches,
+        n_sv=int((m.alpha > 0).sum()),
+        extra=f"; fit_s={m.train_time:.2f} decision_s={t_dec:.2f} "
+        f"iters={m.iters} (cap {CMP_EXACT_ITERS}) pg_max={m.pg_max:.4e} "
+        f"objective {ring[0]:.4f} -> {ring[-1]:.4f}, largest rise "
+        f"{rise:.3e}; {CMP_HOLD} iterations from phase 4's refine alpha, "
+        f"kernels vs plain "
+        f"objective {held[True]:.6f} vs {held[False]:.6f} (rel "
+        f"{obj_rel:.3e}); decisions on {CMP_DEC_CHECK} queries vs plain "
+        f"{dec_err:.3e} of 1 + sum_j |K_ij w_j|")
+    steps = fit_launches["cd_column_update"]
+    if not (steps == m.iters if m.iters == CMP_EXACT_ITERS
+            else m.iters <= steps < m.iters + SYNC_EVERY) \
+            or fit_launches["kernel_matvec"] != 1:
+        raise AssertionError(f"12(a) launches {fit_launches} against "
+                             f"{m.iters} iterations")
+    if rise > DIST_RISE * abs(ring[-1]):
+        raise AssertionError(f"12(a): the objective rose by {rise}")
+    if not obj_rel <= 1e-4:
+        raise AssertionError(f"12(a) held iterations: {held}")
+    if not dec_err <= EARLY_TOL:
+        raise AssertionError(f"12(a) decisions: {dec_err} > {EARLY_TOL}")
+    out.update(iters=m.iters, objective=ring[-1], obj_rel=obj_rel,
+               dec_err=dec_err, fit_s=m.train_time, decision_s=t_dec)
+    return out
+
+
+def _cmp_cascade(torch, X, y, Xte, yte, cfg):
+    """12(b): train_cascade on CMP_N rows, CMP_CASCADE_LEVELS levels; the
+    first leaf's Gram and solve held to the plain versions (the solves by
+    objective: survivor sets may part at f32 near-ties)."""
+    import numpy as np
+
+    from repro_torch.baselines import train_cascade
+    from repro_torch.baselines.common import signed
+    from repro_torch.core import solver as S
+    from repro_torch.core.kernels import gram
+    from repro_torch.kernels import ops
+
+    kern, C = cfg.kernel, cfg.C
+    ops.reset_launches()
+    m = train_cascade(X, y, kern, C, levels=CMP_CASCADE_LEVELS,
+                      max_iters=CMP_CASCADE_ITERS, seed=SEED, device=DEV)
+    t0 = time.perf_counter()
+    dec = m.decision(Xte)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    perm = np.random.default_rng(SEED).permutation(X.shape[0])
+    leaf = torch.as_tensor(np.array_split(perm, 2 ** CMP_CASCADE_LEVELS)[0],
+                           device=DEV)
+    Xl, yl = X[leaf].contiguous(), y[leaf]
+    k_err = _kermat_err(torch, Xl, Xl, kern)
+    obj = {}
+    for use in (True, False):
+        r = S.solve_box_qp(signed(gram(kern, Xl, Xl, use_kernels=use), yl),
+                           C, max_iters=CMP_CASCADE_ITERS)
+        obj[use] = float(S.objective(r.alpha, r.grad))
+    obj_rel = _rel(obj[True], obj[False])
+    solves = 2 ** (CMP_CASCADE_LEVELS + 1)     # the tree's, and the last
+    out = _cmp_line(
+        torch, f"train_cascade (levels {CMP_CASCADE_LEVELS}, "
+        f"{X.shape[0]} rows)", m.train_time + t_dec, yte, dec, launches,
+        n_sv=len(m.sv_index),
+        extra=f"; fit_s={m.train_time:.2f} survivors by level "
+        f"{list(m.survivors)}; first leaf ({len(leaf)} rows) Gram vs plain "
+        f"{k_err:.3e} of 1 + |K|, solve objective {obj[True]:.6f} vs "
+        f"{obj[False]:.6f} (rel {obj_rel:.3e})")
+    if launches["kermat"] != solves + 1 or any(
+            v for k, v in launches.items() if k != "kermat"):
+        raise AssertionError(f"12(b) launches {launches}: a kermat a solve "
+                             f"({solves}) and the decision's")
+    if not k_err <= KERMAT_TOL or not obj_rel <= 1e-4:
+        raise AssertionError(f"12(b) first leaf: Gram {k_err}, objective "
+                             f"{obj}")
+    out.update(survivors=list(m.survivors), k_err=k_err, obj_rel=obj_rel,
+               fit_s=m.train_time)
+    return out
+
+
+def _cmp_low_rank(torch, X, y, Xte, yte, cfg):
+    """12(c): LLSVM (CMP_LANDMARKS landmarks) and RFF (CMP_FEATURES
+    features) on CMP_N rows, their block CD capped at CMP_BLOCK_ITERS outer
+    iterations; LLSVM's K_bb and K(X, landmarks) held to the plain versions
+    at kermat's tolerance; RFF launches nothing."""
+    from repro_torch.baselines import train_llsvm, train_rff
+    from repro_torch.kernels import ops
+
+    kern, C = cfg.kernel, cfg.C
+    out = {}
+    ops.reset_launches()
+    m = train_llsvm(X, y, kern, C, num_landmarks=CMP_LANDMARKS,
+                    max_iters=CMP_BLOCK_ITERS, seed=SEED, device=DEV)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dec = m.decision(Xte)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    errs = [_kermat_err(torch, m.landmarks, m.landmarks, kern),
+            _kermat_err(torch, X, m.landmarks, kern)]
+    out["llsvm"] = _cmp_line(
+        torch, f"train_llsvm ({CMP_LANDMARKS} landmarks, {X.shape[0]} rows)",
+        m.train_time + t_dec, yte, dec, launches,
+        extra=f"; fit_s={m.train_time:.2f} (block CD capped at "
+        f"{CMP_BLOCK_ITERS}); K_bb and K(X, landmarks) vs plain "
+        f"{errs[0]:.3e}, {errs[1]:.3e} of 1 + |K|")
+    if launches["kermat"] != 3 or any(v for k, v in launches.items()
+                                      if k != "kermat"):
+        raise AssertionError(f"12(c) LLSVM launches {launches}")
+    if not max(errs) <= KERMAT_TOL:
+        raise AssertionError(f"12(c) LLSVM Grams vs plain: {errs}")
+    out["llsvm"].update(k_err=errs, fit_s=m.train_time)
+    del m
+    ops.reset_launches()
+    m = train_rff(X, y, kern, C, num_features=CMP_FEATURES,
+                  max_iters=CMP_BLOCK_ITERS, seed=SEED, device=DEV)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dec = m.decision(Xte)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    out["rff"] = _cmp_line(
+        torch, f"train_rff ({CMP_FEATURES} features, {X.shape[0]} rows)",
+        m.train_time + t_dec, yte, dec, launches,
+        extra=f"; fit_s={m.train_time:.2f} (block CD capped at "
+        f"{CMP_BLOCK_ITERS}); runs no hand-written kernel")
+    if any(launches.values()):
+        raise AssertionError(f"12(c) RFF launched kernels: {launches}")
+    out["rff"]["fit_s"] = m.train_time
+    return out
+
+
+def _cmp_ltpu(torch, Xtr, ytr, Xte, yte, cfg):
+    """12(d): LTPU (CMP_UNITS units) on the whole split, Phi held to the
+    plain version at kermat's tolerance."""
+    from repro_torch.baselines import train_ltpu
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    m = train_ltpu(Xtr, ytr, cfg.kernel, num_units=CMP_UNITS, seed=SEED,
+                   device=DEV)
+    t0 = time.perf_counter()
+    dec = m.decision(Xte)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    err = _kermat_err(torch, Xtr, m.centers, cfg.kernel)
+    out = _cmp_line(
+        torch, f"train_ltpu ({CMP_UNITS} units, the whole split)",
+        m.train_time + t_dec, yte, dec, launches,
+        extra=f"; fit_s={m.train_time:.2f}; Phi vs plain {err:.3e} of "
+        "1 + |K|")
+    if launches["kermat"] != 2 or any(v for k, v in launches.items()
+                                      if k != "kermat"):
+        raise AssertionError(f"12(d) LTPU launches {launches}")
+    if not err <= KERMAT_TOL:
+        raise AssertionError(f"12(d) Phi vs plain: {err}")
+    out.update(k_err=err, fit_s=m.train_time)
+    return out
+
+
+def _ckpt_cli_start(ckpt_dir: str):
+    """12(e): train_svm --ckpt-dir, started (it runs beside (a)-(d))."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train_svm", "--n",
+         str(CMP_CLI_N), "--levels", str(CMP_CLI_LEVELS), "--ckpt-dir",
+         ckpt_dir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def _ckpt_cli(torch, started, ckpt_dir: str):
+    """12(e): the CLI exits 0, its manifest keeps the last 3 of its
+    levels + 1 steps, and each restored alpha is finite, in [0, C] (the
+    CLI's default 4) and has one entry a training row."""
+    from repro_torch.ckpt import CheckpointManager
+
+    proc, t0 = started
+    stdout, stderr = proc.communicate(timeout=600)
+    secs = time.perf_counter() - t0
+    lines = stdout.strip().splitlines()
+    if proc.returncode != 0 or not any(line.startswith("done in")
+                                       for line in lines):
+        raise AssertionError(f"12(e) train_svm --ckpt-dir failed:\n{stdout}"
+                             f"\n{stderr[-4000:]}")
+    mgr = CheckpointManager(ckpt_dir)
+    steps = mgr.steps()
+    n_train = int(lines[-1].split("SVs ")[1].split("/")[1])
+    want = list(range(CMP_CLI_LEVELS - 1, CMP_CLI_LEVELS + 2))
+    found = []
+    for s in steps:
+        tree = mgr.restore({"alpha": torch.zeros(0),
+                            "level": torch.zeros((), dtype=torch.int32)},
+                           step=s, device=DEV)
+        a = tree["alpha"]
+        found.append((s, int(tree["level"]), tuple(a.shape),
+                      float(a.min()), float(a.max())))
+        if not (a.shape == (n_train,) and bool(torch.isfinite(a).all())
+                and float(a.min()) >= 0.0 and float(a.max()) <= 4.0
+                and int(tree["level"]) == CMP_CLI_LEVELS + 1 - s):
+            raise AssertionError(f"12(e) step {s}: {found[-1]}")
+    log(f"12(e) train_svm --n {CMP_CLI_N} --levels {CMP_CLI_LEVELS} "
+        f"--ckpt-dir ({secs:.1f}s in all): manifest steps {steps}; "
+        f"(step, level, shape, min, max) {found}; " + lines[-1].strip())
+    if steps != want:
+        raise AssertionError(f"12(e) manifest steps {steps}, want {want}")
+    return dict(seconds=secs, steps=steps)
+
+
+def phase_comparison(torch, Xtr, ytr, Xte, yte, cfg, fit4):
+    """Phase 12: the paper's comparison solvers (repro_torch.baselines) on
+    phase 4's split (``fit4``: phase 4's refine alpha), and train_svm
+    --ckpt-dir in the background."""
+    import shutil
+    import tempfile
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_cli_")
+    cli = _ckpt_cli_start(ckpt_dir)
+    out = {}
+    try:
+        X, y = Xtr[:CMP_N].contiguous(), ytr[:CMP_N].contiguous()
+        for key, run in (
+                ("exact", lambda: _cmp_exact(torch, Xtr, ytr, Xte, yte, cfg,
+                                             fit4["refine_alpha"])),
+                ("cascade", lambda: _cmp_cascade(torch, X, y, Xte, yte, cfg)),
+                ("low_rank", lambda: _cmp_low_rank(torch, X, y, Xte, yte,
+                                                   cfg)),
+                ("ltpu", lambda: _cmp_ltpu(torch, Xtr, ytr, Xte, yte, cfg))):
+            t0 = time.perf_counter()
+            out[key] = run()
+            torch.cuda.empty_cache()
+            log(f"12 {key}: {time.perf_counter() - t0:.2f}s")
+        out["ckpt_cli"] = _ckpt_cli(torch, cli, ckpt_dir)
+    finally:
+        if cli[0].poll() is None:
+            cli[0].kill()
+            cli[0].communicate()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out.update(out.pop("low_rank"))
+    return out
+
+
+def comparison_alone():
+    """Phase 12 alone (``python -c "import chip_smoke as c;
+    c.comparison_alone()"``, about 5 minutes): phase 4's data and fit
+    (without its predictions and checks), then phase 12 but the
+    checkpoints of phase 4's fit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DCSVMConfig, Kernel, fit
+    from repro_torch.data import covtype_like, train_test_split
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    rng = np.random.default_rng(SEED)
+    X, y = covtype_like(rng, N_TRAIN + N_TEST)
+    data = train_test_split(rng, X, y, test_frac=N_TEST / (N_TRAIN + N_TEST))
+    Xtr, ytr, Xte, yte = (torch.from_numpy(a).to(DEV) for a in data)
+    cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=1.0), C=8.0, k=4, levels=4,
+                      m=1000, gram_budget=GRAM_BUDGET, seed=SEED,
+                      max_iters=MAIN_ITERS)
+    fit4 = {}
+    with _capture_fit(fit4):
+        fit(cfg, Xtr, ytr, device=DEV)
+    t0 = time.perf_counter()
+    out = phase_comparison(torch, Xtr, ytr, Xte, yte, cfg, fit4)
+    log(f"phase comparison solvers (12): {time.perf_counter() - t0:.2f}s")
+    log("phase 12: " + json.dumps(out, default=str))
+    return out
+
+
 def distributed_alone():
     """Phase 11 alone (``python -c "import chip_smoke as c;
     c.distributed_alone()"``, about 5 minutes): phase 4's data and fit
@@ -3752,14 +4197,14 @@ def main() -> int:
     t0 = time.perf_counter()
     fw, fw_te = slice(0, FIT_N), slice(FIT_N, FIT_N + FIT_N_TEST)
     cov = (Xtr[:FIT_N], ytr[:FIT_N], Xte[:FIT_N_TEST], yte[:FIT_N_TEST])
+    cov_eq = (Xtr[:FIT_N_EQ], ytr[:FIT_N_EQ], Xte[:FIT_N_TEST],
+              yte[:FIT_N_TEST])
     fit3 = phase_fit_parity(torch, [
         ("covtype_like", cfg.kernel, cfg.C, cfg.tol, *cov, None, {}),
         ("covtype_like, col_cache_cap 2048", cfg.kernel, cfg.C, cfg.tol,
          *cov, None, {"col_cache_cap": PHASE3_CACHE}),
         ("covtype_like, compute_dtype bfloat16", cfg.kernel, cfg.C, cfg.tol,
          *cov, None, {"compute_dtype": "bfloat16"}),
-        ("covtype_like, host_spill", cfg.kernel, cfg.C, cfg.tol, *cov, None,
-         {"host_spill": True, "gram_budget": PHASE3_SPILL_BUDGET}),
         ("webspam_like", Kernel("rbf", gamma=WEB_GAMMA), WEB_C, WEB_TOL,
          Xw[fw], yw[fw], Xw[fw_te], yw[fw_te], None, {}),
         ("weighted-svc gaussian_mixture_imbalanced", Kernel("rbf", gamma=8.0),
@@ -3767,14 +4212,15 @@ def main() -> int:
          WeightedCSVC(w_pos=10.0), {}),
         ("svr friedman1 (dedup view)", cfg.kernel, SVR_C, cfg.tol,
          Xf[:FIT_N_SVR], yf[:FIT_N_SVR], Xf[fw_te], yf[fw_te],
-         EpsilonSVR(eps=SVR_EPS), {}),
+         EpsilonSVR(eps=SVR_EPS), {"full_gram_threshold": FIT_FULL_GRAM_SVR}),
         ("one-class covtype_like, eq_block_size 1", cfg.kernel, 1.0, cfg.tol,
          *cov, OneClassSVM(nu=OC_NU), {"eq_block_size": 1}),
         ("one-class covtype_like, eq_block_size 64", cfg.kernel, 1.0, cfg.tol,
-         *cov, OneClassSVM(nu=OC_NU), {"eq_block_size": 64}),
+         *cov_eq, OneClassSVM(nu=OC_NU),
+         {"eq_block_size": 64, "full_gram_threshold": FIT_FULL_GRAM_EQ}),
         ("nu-svc with bias covtype_like, eq_block_size 128", cfg.kernel, 1.0,
-         cfg.tol, *cov, NuSVC(nu=OC_NU, with_bias=True),
-         {"eq_block_size": 128})])
+         cfg.tol, *cov_eq, NuSVC(nu=OC_NU, with_bias=True),
+         {"eq_block_size": 128, "full_gram_threshold": FIT_FULL_GRAM_EQ})])
     del Xw, yw, Xf, yf, Xi, yi
     log(f"phase fit parity: {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
@@ -3784,9 +4230,12 @@ def main() -> int:
     log(f"phase main path: {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     dist = phase_distributed(torch, Xtr, ytr, cfg, fit4)
-    del fit4
     torch.cuda.empty_cache()
     log(f"phase distributed (11): {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    comparison = phase_comparison(torch, Xtr, ytr, Xte, yte, cfg, fit4)
+    del fit4
+    log(f"phase comparison solvers (12): {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     serving, rows["kermat_serving"] = phase_serving(torch, early, Xte, yte,
                                                     d_eq10, d_early)
@@ -3880,7 +4329,11 @@ def main() -> int:
         if name in SVM_KERNELS:
             row.update(launches_phase9a=bf_launches[name],
                        launches_phase9b=spill_launches[name],
-                       launches_phase11a=dist["a"]["launches"][name])
+                       launches_phase11a=dist["a"]["launches"][name],
+                       launches_phase12={
+                           k: comparison[k]["launches"][name]
+                           for k in ("exact", "cascade", "llsvm", "rff",
+                                     "ltpu")})
         kernels.append(row)
     # the bf16 operand forms: launches from phase 9(a)'s bf16 main path;
     # cd_column_update's bf16 form is not on it (the column cache serves
@@ -3938,6 +4391,7 @@ def main() -> int:
         "memory_fit_s": spill["memory"]["fit_s"]}, default=str))
     log("phase 10: " + json.dumps(observed, default=str))
     log("phase 11: " + json.dumps(dist, default=str))
+    log("phase 12: " + json.dumps(comparison, default=str))
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

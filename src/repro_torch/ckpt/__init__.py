@@ -1,0 +1,4 @@
+from repro_torch.ckpt.checkpoint import (CheckpointManager, load_pytree,
+                                         save_pytree)
+
+__all__ = ["CheckpointManager", "load_pytree", "save_pytree"]

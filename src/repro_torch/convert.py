@@ -16,6 +16,10 @@ and the task as its name and hyper-parameters (``task=`` and
 ``from_jax_multiclass`` does the same for a reference ``MulticlassModel``,
 with "classes" and "Y" in place of "y" and "beta".
 
+``from_jax_baseline`` does the same for a reference comparison solver
+(``repro.baselines``: ``ExactSVM``, ``CascadeSVM``, ``LLSVM``, ``RFFSVM``,
+``LTPU``, by class name), its fields as numpy arrays or scalars.
+
 ``from_jax_lm`` carries a reference LM's parameter tree (nested dicts of
 ``np.asarray`` leaves, bf16 leaves as ``ml_dtypes.bfloat16``) over to the
 port's tree, with the same paths, shapes and dtypes.
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dcsvm import DCSVMConfig, DCSVMModel
-from repro_torch.core.kernels import Kernel
+from repro_torch.core.kernels import Kernel, resolve_use_kernels
 from repro_torch.core.kkmeans import KKMeansModel, Partition
 from repro_torch.core.multiclass import MulticlassModel
 from repro_torch.core.tasks import CSVC, TASKS, Task
@@ -51,11 +55,17 @@ def config_from(cfg) -> DCSVMConfig:
         src = "use_pallas" if f.name == "use_kernels" else f.name
         if hasattr(cfg, src):
             kw[f.name] = getattr(cfg, src)
-    k = kw.get("kernel")
-    if k is not None:
-        kw["kernel"] = Kernel(k.kind, gamma=float(k.gamma),
-                              degree=int(k.degree), coef0=float(k.coef0))
+    if kw.get("kernel") is not None:
+        kw["kernel"] = _kernel(kw["kernel"])
     return DCSVMConfig(**kw)
+
+
+def _kernel(k) -> Kernel:
+    """A port ``Kernel`` from any object with a kernel's fields."""
+    if isinstance(k, Kernel):
+        return k
+    return Kernel(k.kind, gamma=float(k.gamma), degree=int(k.degree),
+                  coef0=float(k.coef0))
 
 
 def from_jax_arrays(d: Dict[str, np.ndarray], cfg: DCSVMConfig,
@@ -99,6 +109,41 @@ def from_jax_multiclass(d: Dict[str, np.ndarray], cfg: DCSVMConfig,
                            alpha=t("alpha"), partition=_partition(d, t),
                            is_early=is_early,
                            level_stats=list(level_stats or []))
+
+
+def from_jax_baseline(kind: str, arrays: Dict[str, Any], kernel,
+                      device: DeviceLike = None,
+                      dtype: torch.dtype = torch.float32):
+    """The port's model of a reference comparison solver: ``kind`` its
+    class name, ``arrays`` its fields (``np.asarray`` of each; "C",
+    "iters", "pg_max" and "train_time" as scalars), ``kernel`` a port or
+    reference ``Kernel``.  Arrays become tensors of ``dtype`` on ``device``
+    (default ``cuda``), which then scores through the CUDA kernels there."""
+    from repro_torch import baselines
+
+    cls = {c.__name__: c for c in (baselines.ExactSVM, baselines.CascadeSVM,
+                                   baselines.LLSVM, baselines.RFFSVM,
+                                   baselines.LTPU)}.get(kind)
+    if cls is None:
+        raise ValueError(f"unknown baseline {kind!r}")
+    dev = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name == "kernel":
+            kw[f.name] = _kernel(kernel)
+        elif f.name == "use_kernels":
+            kw[f.name] = resolve_use_kernels(None, dev)
+        elif f.name not in arrays:
+            continue                   # a field of the port's alone
+        elif f.type == "torch.Tensor":
+            kw[f.name] = torch.as_tensor(np.array(arrays[f.name]),
+                                         device=dev, dtype=dtype)
+        elif f.type in ("float", "int"):
+            kw[f.name] = (float if f.type == "float" else int)(
+                np.asarray(arrays[f.name]))
+        else:
+            kw[f.name] = np.asarray(arrays[f.name])
+    return cls(**kw)
 
 
 def _tensors(d: Dict[str, np.ndarray], dev: torch.device):

@@ -175,9 +175,13 @@ class _SubSolve:
         self.c = torch.zeros((1, B), dtype=dtype, device=device)
         self.out = torch.zeros((1, B), dtype=acc, device=device)
 
+        Q, g, a, c, out = self.Q, self.g, self.a, self.c, self.out
+
+        # fn holds the buffers, not self: a cycle through self would leave
+        # this graph to the cyclic collector, which can free it while a
+        # later conquer captures its own graph, and that ends the capture
         def fn():
-            self.out.copy_(S._solve_small_qp(self.Q, self.g, self.a, self.c,
-                                             sweeps))
+            out.copy_(S._solve_small_qp(Q, g, a, c, sweeps))
         self.step = S._Stepper(fn, device, device.type == "cuda",
                                capture_mode="thread_local")
 

@@ -113,6 +113,14 @@ def gram(kernel: Kernel, X: torch.Tensor, Y: torch.Tensor,
     return kernel.pairwise(X, Y, compute_dtype=compute_dtype)
 
 
+def gram_blocks(kernel: Kernel, Xc: torch.Tensor, use_kernels: bool = False,
+                compute_dtype=None) -> torch.Tensor:
+    """Per-cluster Gram matrices: (k, nc, d) -> (k, nc, nc), one batched
+    ``kermat`` launch with ``use_kernels``."""
+    return gram(kernel, Xc, Xc, use_kernels=use_kernels,
+                compute_dtype=compute_dtype)
+
+
 def gram_matvec(kernel: Kernel, X: torch.Tensor, v: torch.Tensor,
                 num_chunks: Optional[int] = None, use_kernels: bool = False,
                 budget_bytes: Optional[int] = None, compute_dtype=None

@@ -14,6 +14,8 @@
         --compute-dtype bfloat16 --host-spill --gram-budget 268435456
     PYTHONPATH=src python -m repro_torch.launch.train_svm --trace fit.json \\
         --trace-cap 4096 --stats-json stats.json
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --n 20000 \\
+        --levels 3 --dataset covtype_like --ckpt-dir /tmp/dcsvm_ckpt
     PYTHONPATH=src python -m torch.distributed.run --standalone \\
         --nproc-per-node 2 -m repro_torch.launch.train_svm --distributed \\
         --samples 4000 [--dist-backend gloo] [--dist-mode replicated] \\
@@ -38,6 +40,14 @@ last N iterations of the level-0 solve into a device ring
 (``DCSVMConfig.trace``); ``--stats-json PATH`` writes every level's stats,
 the convergence trace among them.
 
+``--ckpt-dir DIR`` saves each level's alpha and level number as it ends
+(``ckpt.CheckpointManager``: step ``levels - level + 1``, written on a
+background thread, the last 3 steps kept), as the reference's code does.
+Nothing is restored: a restart trains from the start.  (The reference's
+docstring speaks of saving the assignments and resuming at the next
+level; its code saves alpha and level only and restores nothing.)  The
+distributed path saves nothing, as in the reference.
+
 ``--distributed`` runs ``core.distributed.fit_distributed_model`` (svc,
 weighted-svc and svr): every level's clusters and the conquer's rows
 sharded over the ranks, the conquer by parallel block minimisation
@@ -57,6 +67,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.ckpt import CheckpointManager
 from repro_torch.core import (DCSVMConfig, EpsilonSVR, Kernel, NuSVC,
                               OneClassSVM, WeightedCSVC, accuracy, f1, fit,
                               mae, mse, precision, predict_early,
@@ -170,6 +181,9 @@ def main(argv=None) -> None:
                     help="byte budget for Gram storage tiers: a level's "
                          "batch of cluster Grams, the column cache, the "
                          "spill panels (0 = default)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="save every level's alpha and level here "
+                         "(non-distributed fits)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default="",
@@ -230,16 +244,24 @@ def main(argv=None) -> None:
                       early_stop_level=args.early, seed=args.seed,
                       host_spill=args.host_spill, **extra)
 
+    mesh = None
+    if args.distributed:
+        mesh = make_conquer_mesh("i", device=args.device,
+                                 backend=args.dist_backend)
+    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir and mesh is None \
+        else None
+
     def cb(level, alpha, st):
         counters = "".join(f" {k}={st[k]}" for k in COUNTERS if k in st)
         print(f"level {level}: clusters={st.get('clusters', 1)} "
               f"n_sv={st['n_sv']} cluster_t={st.get('cluster_time', 0):.1f}s "
               f"train_t={st['train_time']:.1f}s{counters}", flush=True)
+        if mgr is not None:
+            mgr.save(cfg.levels - level + 1,
+                     {"alpha": alpha,
+                      "level": torch.tensor(level, dtype=torch.int32)},
+                     blocking=False)
 
-    mesh = None
-    if args.distributed:
-        mesh = make_conquer_mesh("i", device=args.device,
-                                 backend=args.dist_backend)
     lead = mesh is None or mesh.rank == 0      # prints and writes files
     tracer = None
     span_ctx = contextlib.nullcontext()
@@ -300,6 +322,8 @@ def main(argv=None) -> None:
                         f" -1 {recall(yte, pred, -1.0):.4f}")
     print(f"done in {t_train:.1f}s | {mode} | {metrics} | "
           f"SVs {len(model.sv_index)}/{Xtr.shape[0]}", flush=True)
+    if mgr is not None:
+        mgr.wait()
 
 
 if __name__ == "__main__":

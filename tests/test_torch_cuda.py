@@ -1475,3 +1475,98 @@ def test_cuda_conquer_kernels_against_plain(cuda_device, mode, cache):
         assert launches["kermat"] == rounds and steps == 0
     else:
         assert steps == rounds == 100
+
+
+# ---- the comparison solvers (repro_torch.baselines) ----------------------
+
+# each baseline's kernels on the card (its row of the kernel table); RFF
+# launches none
+BASELINE_KERNELS = {"exact": {"kermat"},
+                    "exact-gram-free": {"kermat", "kernel_matvec",
+                                        "cd_column_update"},
+                    "cascade": {"kermat"}, "llsvm": {"kermat"},
+                    "rff": set(), "ltpu": {"kermat"}}
+
+
+def _baseline(name, X, y, device, use_kernels):
+    from repro_torch import baselines as TB
+
+    kern = Kernel("rbf", gamma=8.0)
+    kw = dict(device=device, use_kernels=use_kernels)
+    if name.startswith("exact"):
+        return TB.train_exact(X, y, kern, 4.0, full_gram_threshold=512
+                              if name == "exact-gram-free" else 16384, **kw)
+    if name == "cascade":
+        return TB.train_cascade(X, y, kern, 4.0, levels=2, **kw)
+    if name == "llsvm":
+        return TB.train_llsvm(X, y, kern, 4.0, num_landmarks=64,
+                              max_iters=300, **kw)
+    if name == "rff":
+        return TB.train_rff(X, y, kern, 4.0, num_features=256,
+                            max_iters=300, **kw)
+    return TB.train_ltpu(X, y, kern, num_units=64, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BASELINE_KERNELS))
+def test_cuda_baseline_launches_its_kernels(cuda_device, name):
+    """Each comparison solver on CUDA tensors launches the kernels of its
+    row (RFF none) and meets its plain run on the card: objective to 1e-4
+    relative where it solves a kernel dual, decisions within 1e-3 of 1 +
+    |f| elsewhere, and accuracy within 0.01 either way."""
+    from repro_torch.data import gaussian_mixture, train_test_split
+
+    rng = np.random.default_rng(0)
+    X, y = gaussian_mixture(rng, 1500, d=8, modes_per_class=4, spread=0.15)
+    Xtr, ytr, Xte, yte = (torch.from_numpy(a).to(cuda_device)
+                          for a in train_test_split(rng, X, y))
+    ops.reset_launches()
+    got = _baseline(name, Xtr, ytr, cuda_device, None)
+    dec = got.decision(Xte)
+    launched = {k for k, v in ops.LAUNCHES.items() if v}
+    assert launched == BASELINE_KERNELS[name]
+    assert dec.device == Xte.device and dec.dtype == torch.float32
+    plain = _baseline(name, Xtr, ytr, cuda_device, False)
+    want = plain.decision(Xte)
+    acc = [float((torch.sign(d) == yte).float().mean()) for d in (dec, want)]
+    assert abs(acc[0] - acc[1]) <= 0.01 and acc[0] > 0.85
+    if name.startswith("exact"):
+        K = ref.kermat_ref(Xtr, Xtr, kind="rbf", gamma=8.0).double()
+        Q = (ytr[:, None] * ytr[None, :]).double() * K
+
+        def f(a):
+            a = a.double()
+            return float(0.5 * a @ Q @ a - a.sum())
+
+        assert abs(f(got.alpha) - f(plain.alpha)) <= 1e-4 * abs(
+            f(plain.alpha))
+    elif name in ("llsvm", "rff", "ltpu"):
+        assert float(((dec - want).abs() / (1 + want.abs())).max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_gram_blocks_and_checkpoint_round_trip(cuda_device, tmp_path):
+    """gram_blocks is one batched kermat launch at kermat's 2e-5; a
+    checkpoint of CUDA tensors restores on the card bit for bit."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core.kernels import gram_blocks
+
+    Xc = torch.rand(4, 300, 54, device=cuda_device)
+    kern = Kernel("rbf", gamma=1.0)
+    ops.reset_launches()
+    K = gram_blocks(kern, Xc, use_kernels=True)
+    assert ops.LAUNCHES["kermat"] == 1 and K.shape == (4, 300, 300)
+    torch.testing.assert_close(K, gram_blocks(kern, Xc), rtol=2e-5,
+                               atol=2e-5)
+    mgr = CheckpointManager(str(tmp_path))
+    tree = {"K": K, "level": torch.tensor(3, dtype=torch.int32,
+                                          device=cuda_device)}
+    mgr.save(1, tree)
+    K.zero_()                    # after the host copy: not in the file
+    mgr.wait()
+    back = mgr.restore({"K": torch.zeros(0), "level": torch.zeros(
+        (), dtype=torch.int32)}, device=cuda_device)
+    assert back["K"].device == K.device and int(back["level"]) == 3
+    torch.testing.assert_close(back["K"], gram_blocks(kern, Xc,
+                                                      use_kernels=True),
+                               rtol=0, atol=0)

@@ -341,6 +341,31 @@ def test_conquer_cache_counters(mesh1):
     assert hits > 0 and hits + misses == int(rounds) * CQ["block"]
 
 
+def test_sub_solve_is_freed_when_its_conquer_returns():
+    """A round's sub-solve (on CUDA, its captured graph) holds no reference
+    cycle, so it is freed when its conquer returns: left to the cyclic
+    collector, a graph could be freed while a later conquer captures its
+    own, and that ends the capture (seen on an H100 with two conquers in
+    one process)."""
+    import gc
+    import weakref
+
+    gc.disable()
+    try:
+        sub = TD._SubSolve(4, 2, torch.float64, torch.float64,
+                           torch.device("cpu"))
+        out = sub(torch.eye(4, dtype=torch.float64),
+                  -torch.ones(4, dtype=torch.float64),
+                  torch.zeros(4, dtype=torch.float64),
+                  torch.ones(4, dtype=torch.float64))
+        assert torch.equal(out, torch.ones(4, dtype=torch.float64))
+        ref = weakref.ref(sub)
+        del sub
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
 def test_combination_step_size_matches_reference():
     """gamma* on random pairs, dQd <= 0 and both clip ends included."""
     import jax

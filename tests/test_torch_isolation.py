@@ -9,20 +9,32 @@ import pytest
 import torch
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+EXAMPLES = SRC.parent / "examples"
+PORT_EXAMPLES = ("quickstart", "multiclass_dcsvm", "svr_dcsvm",
+                 "oneclass_dcsvm", "end_to_end_dcsvm", "distributed_dcsvm")
 
 _PROBE = """
+import importlib.util
 import sys
+from pathlib import Path
 import numpy as np
 from repro_torch.core import DCSVMConfig, Kernel, fit, predict_exact, accuracy
 from repro_torch.data import gaussian_mixture
 import repro_torch.convert, repro_torch.launch.serve_svm, repro_torch.launch.train_svm
 import repro_torch.configs, repro_torch.models.lm, repro_torch.launch.serve
 import repro_torch.launch.engine, repro_torch.launch.registry
+import repro_torch.baselines, repro_torch.ckpt
 from repro_torch.launch import serve
+for path in sorted(Path(sys.argv[1]).glob("*_torch.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 X, y = gaussian_mixture(np.random.default_rng(0), 200, d=4, modes_per_class=2)
 cfg = DCSVMConfig(kernel=Kernel("rbf", gamma=4.0), C=2.0, levels=1, m=50)
 model = fit(cfg, X, y, device="cpu")
 assert accuracy(y, predict_exact(model, X)) > 0.8
+ltpu = repro_torch.baselines.train_ltpu(X, y, Kernel("rbf", gamma=4.0),
+                                        num_units=16, device="cpu")
+assert accuracy(y, ltpu.predict(X)) > 0.8
 lm_cfg = repro_torch.configs.get_config("qwen1.5-0.5b", reduced=True)
 params = serve.init_params(lm_cfg, 0, "cpu")
 prompts = serve.make_prompts(lm_cfg, 2, 8, 1, "cpu")
@@ -37,8 +49,11 @@ print("ok")
 
 def test_port_runs_without_jax_or_the_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
-                         capture_output=True, text=True, timeout=120)
+    assert sorted(p.stem for p in EXAMPLES.glob("*_torch.py")) == sorted(
+        f"{e}_torch" for e in PORT_EXAMPLES)
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(EXAMPLES)],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
 
@@ -66,6 +81,7 @@ def test_core_exports_the_reference_names():
 
 def test_no_module_imports_jax_or_the_reference():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
+    files += sorted(EXAMPLES.glob("*_torch.py"))
     files.append(SRC.parent / "chip_smoke.py")
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
